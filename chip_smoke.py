@@ -4,19 +4,27 @@
     python3 chip_smoke.py
 
 Phases, each of which fails the run (non-zero exit) on any error:
-  1. device: the card's name and power limit; build the CUDA Gram kernel
-     from `tgp/pytorch_tpu_torch/csrc/` into `build/kernels/`;
-  2. kernel: the kernel against its plain torch version on the card at the
-     serving shapes (K_zz 100x100, K_xz 256x100 and 4096x100, a ragged
-     batched case, fp64), forward and gradients, with device times from
-     CUDA-graph replays beside the bound;
+  1. device: the card's name and power limit; build the CUDA Gram kernels
+     (forward and backward, one nvcc each, at once) from
+     `tgp/pytorch_tpu_torch/csrc/` into `build/kernels/`;
+  2. kernel: both kernels against their plain torch versions on the card at
+     the serving shapes (K_zz 100x100, K_xz 256x100 and 4096x100, a ragged
+     batched case, fp64), the training shape 8611x100 (fp32 and fp64) and
+     the pair (K_xz and K_zz in one launch) at 256, 4096 and 8611 rows: the
+     forward, the backward kernel (twice, bitwise equal) and the autograd
+     gradients, with device times from CUDA-graph replays beside the bound;
+     and one Gram of 2,200,000 rows;
   3. serving: `serve.Predictor` on the flagship TGP (UCI power split 1, SAL 2
      flow, scale-RBF ARD kernel, whitened q(U) with M=100, 100 Gauss-Hermite
      nodes, fp32, buckets 256/4096) answering moments, band, sample,
-     log_prob and map requests; the kernel's launch count must rise by
-     exactly 2 per request; results are checked against the same Predictor
-     on the CPU in fp32 and in fp64, and K_zz's jitter rung must be the
-     CPU's.
+     log_prob and map requests; the forward kernel's launch count must rise
+     by exactly 1 per request and the backward's not at all; results are
+     checked against the same Predictor on the CPU in fp32 and in fp64, and
+     K_zz's jitter rung must be the CPU's;
+  4. gradient: the flagship's `test_log_likelihood` over the 8611 training
+     rows in fp32 and its gradient into every parameter, through exactly 1
+     forward launch and 1 backward kernel call, checked against the same
+     gradient on the CPU in fp32 and in fp64.
 The line before the last holds the kernels' JSON record, the last line
 `{"ok": true, "device": {...}}`.  Details go to chiprun_out/chip_smoke.json.
 """
@@ -87,15 +95,34 @@ def graph_ms(fn, calls=100, replays=5) -> float:
     return t0.elapsed_time(t1) / (calls * replays)
 
 
-def gram_bound(Dy, N, M, Dx, dtype):
-    """Least time for one Gram: bytes (inputs read once, output written once)
-    over HBM rate vs operations over the peak rate of the dtype; returns
+def gram_bound(Dy, N, M, Dx, dtype, pair=False):
+    """Least time for one forward launch: bytes (inputs read once, outputs
+    written once) over HBM rate vs operations over the peak rate of the
+    dtype; the pair reads Z once and writes K_xz and K_zz.  Returns
     (ms, 'bytes'|'operations', bytes, flops)."""
     item = torch.finfo(dtype).bits // 8
-    nbytes = item * (Dy * N * Dx + Dy * M * Dx + Dy + Dy * N * M)
-    # cross term 2*Dx, norms 2*Dx per row, and per output: add, add, scale,
-    # clamp, -0.5*, exp, *ks (an exp counted as one operation)
-    flops = Dy * (2 * N * M * Dx + 2 * (N + M) * Dx + 7 * N * M)
+    rows = N + M if pair else N         # output rows, each against Z
+    nbytes = item * (Dy * N * Dx + Dy * M * Dx + Dy + Dy * rows * M)
+    # cross term 2*Dx, norms 2*Dx per row of X and Z, and per output: add,
+    # add, scale, clamp, -0.5*, exp, *ks (an exp counted as one operation)
+    flops = Dy * (2 * rows * M * Dx + 2 * (N + M) * Dx + 7 * rows * M)
+    return _bound(nbytes, flops, dtype)
+
+
+def bwd_bound(Dy, N, M, Dx, dtype, pair=False):
+    """Least time for the backward: read g (and g_zz for the pair), X, Z and
+    ks, write dX, dZ and dks; K is recomputed, not read.  Operations per
+    output: the forward's 2*Dx + 7, g*K 1, dks 2, the two gK-weighted sums
+    2*Dx each and the row and column sums 2 (6*Dx + 12); per row and column
+    their norms and the -sum(gK)*x terms (4*Dx)."""
+    item = torch.finfo(dtype).bits // 8
+    rows = N + M if pair else N
+    nbytes = item * (Dy * rows * M + 2 * (Dy * N * Dx + Dy * M * Dx + Dy))
+    flops = Dy * (rows * M * (6 * Dx + 12) + 4 * (rows + M) * Dx)
+    return _bound(nbytes, flops, dtype)
+
+
+def _bound(nbytes, flops, dtype):
     t_b, t_f = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dtype]
     return 1e3 * max(t_b, t_f), ("bytes" if t_b >= t_f else "operations"), \
         nbytes, flops
@@ -111,18 +138,33 @@ def assert_close(name, got, want, tol):
                                err_msg=name)
 
 
+def assert_close_scaled(name, got, want, tol):
+    """Close relative to the largest entry of `want` (the VJP tolerance)."""
+    scale = float(want.abs().max()) or 1.0
+    assert_close(name, got / scale, want / scale, tol)
+
+
 # ---------------------------------------------------------------------------
-# phase 2: the kernel against its plain version
+# phase 2: the kernels against their plain versions
 # ---------------------------------------------------------------------------
 
-KERNEL_SHAPES = [  # (label, Dy, N, M, Dx, dtype)
-    ("K_zz 100x100 fp32", 1, 100, 100, 4, torch.float32),
-    ("K_xz 256x100 fp32", 1, 256, 100, 4, torch.float32),
-    ("K_xz 4096x100 fp32", 1, 4096, 100, 4, torch.float32),
-    ("ragged 2x131x77x3 fp32", 2, 131, 77, 3, torch.float32),
-    ("K_xz 4096x100 fp64", 1, 4096, 100, 4, torch.float64),
-    ("ragged 2x131x77x3 fp64", 2, 131, 77, 3, torch.float64),
+F32, F64 = torch.float32, torch.float64
+KERNEL_SHAPES = [  # (label, Dy, N, M, Dx, dtype, pair)
+    ("K_zz 100x100 fp32", 1, 100, 100, 4, F32, False),
+    ("K_xz 256x100 fp32", 1, 256, 100, 4, F32, False),
+    ("K_xz 4096x100 fp32", 1, 4096, 100, 4, F32, False),
+    ("ragged 2x131x77x3 fp32", 2, 131, 77, 3, F32, False),
+    ("K_xz 4096x100 fp64", 1, 4096, 100, 4, F64, False),
+    ("ragged 2x131x77x3 fp64", 2, 131, 77, 3, F64, False),
+    ("K_xz 8611x100 fp32", 1, 8611, 100, 4, F32, False),
+    ("K_xz 8611x100 fp64", 1, 8611, 100, 4, F64, False),
+    ("pair 256+100 fp32", 1, 256, 100, 4, F32, True),
+    ("pair 4096+100 fp32", 1, 4096, 100, 4, F32, True),
+    ("pair 8611+100 fp32", 1, 8611, 100, 4, F32, True),
+    ("pair 8611+100 fp64", 1, 8611, 100, 4, F64, True),
 ]
+# more rows than the earlier kernel's grid took (65535 tiles of 32)
+BIG_GRAM = ("K_xz 2200000x8 Dx=1 fp32", 1, 2_200_000, 8, 1, F32)
 
 
 def kernel_phase(dev):
@@ -130,57 +172,95 @@ def kernel_phase(dev):
 
     gen = torch.Generator(device=dev).manual_seed(0)
     rows = []
-    for label, Dy, N, M, Dx, dtype in KERNEL_SHAPES:
+    for label, Dy, N, M, Dx, dtype, pair in KERNEL_SHAPES:
         X1 = torch.randn(Dy, N, Dx, generator=gen, device=dev, dtype=dtype)
         X2 = torch.randn(Dy, M, Dx, generator=gen, device=dev, dtype=dtype)
         ks = torch.rand(Dy, generator=gen, device=dev, dtype=dtype) + 0.5
-        out = R.rbf_gram(X1, X2, ks)
-        ref = R.rbf_gram_reference(X1, X2, ks)
+        fused, plain = ((R.rbf_gram_pair, R.rbf_gram_pair_reference) if pair
+                        else (lambda *a: (R.rbf_gram(*a),),
+                              lambda *a: (R.rbf_gram_reference(*a),)))
+        outs, refs = fused(X1, X2, ks), plain(X1, X2, ks)
         torch.cuda.synchronize()
-        tol = F32_TOL if dtype == torch.float32 else F64_TOL
-        assert_close(label, out, ref, tol)
-        check(out.shape == (Dy, N, M) and out.dtype == dtype, label)
+        tol = F32_TOL if dtype == F32 else F64_TOL
+        gtol = F32_GRAD_TOL if dtype == F32 else F64_GRAD_TOL
+        for out, ref in zip(outs, refs):
+            assert_close(label, out, ref, tol)
+            check(out.shape == ref.shape and out.dtype == dtype, label)
 
-        # gradients: the Function's backward against autograd of the plain
-        w = torch.randn(Dy, N, M, generator=gen, device=dev, dtype=dtype)
+        # the backward kernel against its plain version, twice (same bits)
+        gs = [torch.randn(r.shape, generator=gen, device=dev, dtype=dtype)
+              for r in refs]
+        bwd = lambda: R._launch_bwd(X1, X2, ks, *gs)       # noqa: E731
+        plain_bwd = ((lambda: R.rbf_gram_pair_bwd(X1, X2, ks, *refs, *gs))
+                     if pair else
+                     (lambda: R.rbf_gram_bwd(X1, X2, ks, refs[0], gs[0])))
+        got, again, want = bwd(), bwd(), plain_bwd()
+        torch.cuda.synchronize()
+        for a, b, w, nm in zip(got, again, want, ("dX1", "dX2", "dks")):
+            assert_close_scaled(f"{label} {nm}", a, w, gtol)
+            check(torch.equal(a, b), f"{label} {nm}: two backward runs differ")
+
+        # the Function's gradients against autograd of the plain version
+        ws = [torch.randn(r.shape, generator=gen, device=dev, dtype=dtype)
+              for r in refs]
         grads = []
-        for f in (R.RBFGram.apply, R.rbf_gram_reference):
+        for f in ((R.RBFGramPair.apply, R.rbf_gram_pair_reference) if pair
+                  else (R.RBFGram.apply, R.rbf_gram_reference)):
             leaves = [t.clone().requires_grad_(True) for t in (X1, X2, ks)]
-            (torch.sin(f(*leaves)) * w).sum().backward()
+            Ks = f(*leaves)
+            Ks = Ks if pair else (Ks,)
+            sum((torch.sin(K) * w).sum() for K, w in zip(Ks, ws)).backward()
             grads.append([t.grad for t in leaves])
-        gtol = F32_GRAD_TOL if dtype == torch.float32 else F64_GRAD_TOL
         for gk, gr, nm in zip(*grads, ("dX1", "dX2", "dks")):
-            scale = float(gr.abs().max()) or 1.0
-            assert_close(f"{label} {nm}", gk / scale, gr / scale, gtol)
+            assert_close_scaled(f"{label} autograd {nm}", gk, gr, gtol)
 
-        ms = graph_ms(lambda: R._launch(X1, X2, ks))
-        plain_ms = graph_ms(lambda: R.rbf_gram_reference(X1, X2, ks))
-        bound_ms, bound_by, nbytes, flops = gram_bound(Dy, N, M, Dx, dtype)
-        row = dict(shape=label, max_abs_err=max_err(out, ref), ms=ms,
-                   plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                   bytes=nbytes, flops=flops,
+        ms = graph_ms(lambda: R._launch_pair(X1, X2, ks, pair))
+        plain_ms = graph_ms(lambda: plain(X1, X2, ks))
+        bwd_ms, bwd_plain_ms = graph_ms(bwd), graph_ms(plain_bwd)
+        bound_ms, bound_by, nbytes, flops = gram_bound(Dy, N, M, Dx, dtype, pair)
+        b_ms, b_by, b_bytes, b_flops = bwd_bound(Dy, N, M, Dx, dtype, pair)
+        row = dict(shape=label, pair=pair,
+                   max_abs_err=max(max_err(o, r) for o, r in zip(outs, refs)),
+                   ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                   bound_by=bound_by, bytes=nbytes, flops=flops,
+                   bwd_max_abs_err=max(max_err(a, w) for a, w in zip(got, want)),
+                   bwd_ms=bwd_ms, bwd_plain_ms=bwd_plain_ms, bwd_bound_ms=b_ms,
+                   bwd_bound_by=b_by, bwd_bytes=b_bytes, bwd_flops=b_flops,
                    grad_max_abs_err=max(max_err(a, b) for a, b in zip(*grads)))
         rows.append(row)
-        log(f"kernel {label:24s} err {row['max_abs_err']:.3e} "
-            f"grad_err {row['grad_max_abs_err']:.3e}  kernel {ms * 1e3:8.2f} us"
-            f"  plain {plain_ms * 1e3:8.2f} us  bound {bound_ms * 1e3:7.3f} us"
-            f" ({bound_by})")
-    return rows
+        log(f"kernel {label:24s} fwd {ms * 1e3:7.2f} us (plain {plain_ms * 1e3:7.2f},"
+            f" bound {bound_ms * 1e3:6.3f} {bound_by}) err {row['max_abs_err']:.2e}"
+            f" | bwd {bwd_ms * 1e3:7.2f} us (plain {bwd_plain_ms * 1e3:7.2f},"
+            f" bound {b_ms * 1e3:6.3f} {b_by}) err {row['bwd_max_abs_err']:.2e}")
+
+    label, Dy, N, M, Dx, dtype = BIG_GRAM
+    X1 = torch.randn(Dy, N, Dx, generator=gen, device=dev, dtype=dtype)
+    X2 = torch.randn(Dy, M, Dx, generator=gen, device=dev, dtype=dtype)
+    ks = torch.rand(Dy, generator=gen, device=dev, dtype=dtype) + 0.5
+    out, ref = R.rbf_gram(X1, X2, ks), R.rbf_gram_reference(X1, X2, ks)
+    torch.cuda.synchronize()
+    assert_close(label, out, ref, F32_TOL)
+    big = dict(shape=label, max_abs_err=max_err(out, ref),
+               ms=graph_ms(lambda: R._launch(X1, X2, ks), calls=10),
+               bound_ms=gram_bound(Dy, N, M, Dx, dtype)[0])
+    log(f"kernel {label:24s} fwd {big['ms'] * 1e3:7.2f} us (bound "
+        f"{big['bound_ms'] * 1e3:6.3f}) err {big['max_abs_err']:.2e}")
+    return rows, big
 
 
 # ---------------------------------------------------------------------------
 # phase 3: serving
 # ---------------------------------------------------------------------------
 
-def profile_request(pred, X, **call):
-    """Device activity of one warm request under torch.profiler: number of
-    device operations, their summed device time, the Gram kernel's share,
+def profile_device(fn):
+    """Device activity of one warm fn() under torch.profiler: number of
+    device operations, their summed device time, the Gram kernels' shares,
     and the top operations by device time."""
     from torch.profiler import ProfilerActivity, profile
 
-    pred.predict(X, **call)
+    fn()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        pred.predict(X, **call)
+        fn()
         torch.cuda.synchronize()
     ev = [e for e in prof.events()
           if e.device_type == torch.autograd.DeviceType.CUDA]
@@ -188,10 +268,13 @@ def profile_request(pred, X, **call):
     for e in ev:
         by_name[e.name[:70]] = by_name.get(e.name[:70], 0.0) + e.device_time
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+
+    def ms_of(tag):
+        return sum(e.device_time for e in ev if tag in e.name) / 1e3
+
     return dict(device_ops=len(ev),
                 device_busy_ms=sum(e.device_time for e in ev) / 1e3,
-                gram_ms=sum(e.device_time for e in ev
-                            if "rbf_gram_kernel" in e.name) / 1e3,
+                gram_ms=ms_of("rbf_gram_kernel"), gram_bwd_ms=ms_of("rbf_gram_bwd"),
                 top_ms=[(k, v / 1e3) for k, v in top])
 
 
@@ -246,8 +329,8 @@ def serving_phase(dev):
         counts.append((key, R.LAUNCHES - before))
         return out
 
-    # --- the main path: counts from 0, 2 launches per request -------------
-    R.LAUNCHES = 0
+    # --- the main path: counts from 0, 1 launch per request --------------
+    R.LAUNCHES = R.BWD_LAUNCHES = 0
     n_requests = 0
     res = {}
     for key, X, reps, call in (
@@ -266,13 +349,14 @@ def serving_phase(dev):
     for _ in range(5):
         res["map"] = timed("map_8", lambda: pred.map(reqs, quantiles=None))
         n_requests += len(reqs)
-    launches = R.LAUNCHES
+    launches, bwd_launches = R.LAUNCHES, R.BWD_LAUNCHES
     # ----------------------------------------------------------------------
 
     for key, c in counts:
         per = len(reqs) if key == "map_8" else 1
-        check(c == 2 * per, f"{key}: {c} kernel launches for {per} request(s)")
-    check(launches == 2 * n_requests, f"{launches} launches, {n_requests} requests")
+        check(c == per, f"{key}: {c} kernel launches for {per} request(s)")
+    check(launches == n_requests, f"{launches} launches, {n_requests} requests")
+    check(bwd_launches == 0, f"{bwd_launches} backward launches while serving")
 
     # outputs: finite, shaped, ordered bands
     for key, n in (("moments_n32", 32), ("moments_n4096", 4096),
@@ -351,7 +435,7 @@ def serving_phase(dev):
     profiles = {}
     for key, X, call in (("moments_n32", X32, dict(quantiles=None)),
                          ("bands_n4096", X4096, dict())):
-        prof = profile_request(pred, X, **call)
+        prof = profile_device(lambda: pred.predict(X, **call))
         prof["busy_share_of_p50"] = prof["device_busy_ms"] / p50[key]
         profiles[key] = prof
         log(f"profile {key}: {prof['device_ops']} device ops, busy "
@@ -359,9 +443,127 @@ def serving_phase(dev):
             f" of p50; Gram kernel {prof['gram_ms'] * 1e3:.2f} us")
         for name, ms in prof["top_ms"]:
             log(f"    {ms * 1e3:9.2f} us  {name}")
-    return dict(launches=launches, requests=n_requests, p50_ms=p50, gaps=gaps,
+    return dict(launches=launches, bwd_launches=bwd_launches,
+                requests=n_requests, p50_ms=p50, gaps=gaps,
                 jitter_rungs=rungs, profiles=profiles,
                 log_prob_n957=float(gpu_lp[0]))
+
+
+# ---------------------------------------------------------------------------
+# phase 4: the gradient at the training shape
+# ---------------------------------------------------------------------------
+
+# Limits on the card's fp32 loss and gradients against the CPU's fp32 run
+# of the same function, relative to the largest entry of the fp64 value of
+# each: 10x the gaps measured on an NVIDIA H100 80GB HBM3 (1.24e-5 for the
+# loss, 1.37e-3 for Z, 1.72e-4 for the lengthscales, at most 7.2e-5 for every
+# other parameter), the order in which cuBLAS/cuSOLVER and LAPACK sum,
+# amplified by K_zz's conditioning, which the CPU's own fp32-to-fp64 gaps
+# show (3.3e-2 for Z, 2.0e-2 for the lengthscales).
+GRAD_GAP_LIMITS = {"loss": 1.3e-4, "Z": 1.4e-2,
+                   "kernel.child.raw_lengthscale": 1.8e-3}
+GRAD_GAP_LIMIT_OTHER = 7.3e-4
+
+
+def _named_leaves(tree, prefix=""):
+    """(dotted name, tensor) for every leaf of a params tree, in a fixed
+    order."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _named_leaves(tree[k], f"{prefix}{k}.")
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from _named_leaves(v, f"{prefix}{i}.")
+    else:
+        yield prefix[:-1], tree
+
+
+def gradient_phase(dev):
+    """The flagship's `test_log_likelihood` over the 8611 power training rows
+    (the shape at which the JAX package sends its Gram to the TPU kernel),
+    full width in fp32, and its gradient into every parameter: one forward
+    and one backward kernel call, checked against the same function's
+    gradient on the CPU in fp32 and fp64."""
+    from tgp.pytorch_tpu_torch import config as cfg, weights
+    from tgp.pytorch_tpu_torch.data.uci import load_uci_split
+    from tgp.pytorch_tpu_torch.models import tgp as PM
+    from tgp.pytorch_tpu_torch.ops import rbf_gram as R
+
+    d = load_uci_split("power", 1)
+    spec = weights.flagship_spec(d["X_tr"].shape[0])
+    base = weights.flagship_params(spec, d["X_tr"], seed=0, device="cpu",
+                                   dtype=torch.float64)
+    # round to fp32 once, so the fp64 reference differentiates the same model
+    base = weights.tree_map(lambda t: t.float().double(), base)
+
+    def loss_and_grads(device, dtype):
+        params = weights.tree_map(
+            lambda t: t.to(device, dtype, copy=True).requires_grad_(True), base)
+        X, Y, Ys = (torch.as_tensor(d[k], dtype=dtype, device=device)
+                    for k in ("X_tr", "Y_tr", "Y_std"))
+        ll = PM.test_log_likelihood(spec, params, X, Y, Ys)
+        ll.sum().backward()
+        return ll.detach(), {n: t.grad for n, t in _named_leaves(params)}
+
+    loss_and_grads(dev, F32)                            # warm-up
+    # --- the main path: counts from 0, 1 forward and 1 backward call -----
+    R.LAUNCHES = R.BWD_LAUNCHES = 0
+    ll_gpu, g_gpu = loss_and_grads(dev, F32)
+    torch.cuda.synchronize()
+    launches, bwd_launches = R.LAUNCHES, R.BWD_LAUNCHES
+    # ----------------------------------------------------------------------
+    check(launches == 1, f"gradient: {launches} forward launches, expected 1")
+    check(bwd_launches == 1, f"gradient: {bwd_launches} backward calls, expected 1")
+
+    ll_c32, g_c32 = loss_and_grads("cpu", F32)
+    cfg.set_precision("fp64")
+    try:
+        ll_c64, g_c64 = loss_and_grads("cpu", F64)
+    finally:
+        cfg.set_precision("fp32")
+
+    def rel(a, b, ref):
+        return float((a.double().cpu() - b.double().cpu()).abs().max()
+                     / (ref.double().abs().max() or 1.0))
+
+    gaps = {"loss": dict(gpu32_vs_cpu32=rel(ll_gpu, ll_c32, ll_c64),
+                         gpu32_vs_cpu64=rel(ll_gpu, ll_c64, ll_c64),
+                         cpu32_vs_cpu64=rel(ll_c32, ll_c64, ll_c64))}
+    for n in g_c64:
+        check(g_gpu[n] is not None and torch.isfinite(g_gpu[n]).all(),
+              f"gradient of {n} on the card is missing or not finite")
+        gaps[n] = dict(gpu32_vs_cpu32=rel(g_gpu[n], g_c32[n], g_c64[n]),
+                       gpu32_vs_cpu64=rel(g_gpu[n], g_c64[n], g_c64[n]),
+                       cpu32_vs_cpu64=rel(g_c32[n], g_c64[n], g_c64[n]))
+    for n, g in gaps.items():
+        log(f"gradient {n:34s} rel gap: gpu32 vs cpu32 {g['gpu32_vs_cpu32']:.3e}"
+            f"  gpu32 vs cpu64 {g['gpu32_vs_cpu64']:.3e}"
+            f"  cpu32 vs cpu64 {g['cpu32_vs_cpu64']:.3e}")
+    for n, g in gaps.items():
+        lim = GRAD_GAP_LIMITS.get(n, GRAD_GAP_LIMIT_OTHER)
+        check(g["gpu32_vs_cpu32"] <= lim, f"{n} card vs CPU fp32 {g}")
+        check(g["gpu32_vs_cpu64"] <= max(4 * g["cpu32_vs_cpu64"], 1e-5),
+              f"{n} card vs CPU fp64 {g}")
+
+    def step():
+        loss_and_grads(dev, F32)
+        torch.cuda.synchronize()
+
+    times = []
+    for _ in range(10):
+        t0 = time.perf_counter()
+        step()
+        times.append(time.perf_counter() - t0)
+    prof = profile_device(step)
+    p50 = 1e3 * float(np.median(times))
+    log(f"gradient step p50 {p50:.3f} ms (10 reps); {prof['device_ops']} device"
+        f" ops, busy {prof['device_busy_ms']:.3f} ms = "
+        f"{prof['device_busy_ms'] / p50:.1%} of p50; Gram forward "
+        f"{prof['gram_ms'] * 1e3:.2f} us, backward {prof['gram_bwd_ms'] * 1e3:.2f} us")
+    for name, ms in prof["top_ms"]:
+        log(f"    {ms * 1e3:9.2f} us  {name}")
+    return dict(launches=launches, bwd_launches=bwd_launches, gaps=gaps,
+                step_p50_ms=p50, profile=prof, loss=float(ll_gpu.sum()))
 
 
 def main() -> int:
@@ -381,33 +583,40 @@ def main() -> int:
     t0 = time.perf_counter()
     ptxas = R.build()
     build_s = time.perf_counter() - t0
-    log(f"built {R._LIB_PATH.relative_to(HERE)} in {build_s:.2f} s")
+    log(f"built {', '.join(lib.name for _, lib in R._UNITS)} in {build_s:.2f} s")
     for line in ptxas.splitlines():
         if "registers" in line or "Compiling entry" in line or "spill" in line:
             log("  ptxas:", line.strip())
 
-    rows = kernel_phase(dev)
-    R.LAUNCHES = 0
+    rows, big = kernel_phase(dev)
     serving = serving_phase(dev)
+    grad = gradient_phase(dev)
 
-    main_row = next(r for r in rows if r["shape"] == "K_xz 4096x100 fp32")
-    record = {"kernels": [{
-        "name": "rbf_gram", "route": "cuda",
-        "source": "tgp/pytorch_tpu_torch/csrc/rbf_gram.cu",
-        "replaces": "tgp/pytorch_tpu/ops/pallas/rbf_gram.py:85",
-        "launches": serving["launches"],
-        "max_abs_err": max(r["max_abs_err"] for r in rows
-                           if "fp32" in r["shape"]),
-        "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
-        "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
-        "library_ms": None,
-    }]}
+    fp32_rows = [r for r in rows if "fp32" in r["shape"]]
+    train = next(r for r in rows if r["shape"] == "pair 8611+100 fp32")
+    common = dict(route="cuda", library_ms=None)
+    record = {"kernels": [
+        dict(name="rbf_gram", source="tgp/pytorch_tpu_torch/csrc/rbf_gram.cu",
+             replaces="tgp/pytorch_tpu/ops/pallas/rbf_gram.py:85",
+             launches=serving["launches"] + grad["launches"],
+             max_abs_err=max(r["max_abs_err"] for r in fp32_rows + [big]),
+             ms=train["ms"], plain_ms=train["plain_ms"],
+             bound_ms=train["bound_ms"], bound_by=train["bound_by"], **common),
+        dict(name="rbf_gram_bwd",
+             source="tgp/pytorch_tpu_torch/csrc/rbf_gram_bwd.cu",
+             replaces="tgp/pytorch_tpu/ops/pallas/rbf_gram.py:114",
+             launches=serving["bwd_launches"] + grad["bwd_launches"],
+             max_abs_err=max(r["bwd_max_abs_err"] for r in fp32_rows),
+             ms=train["bwd_ms"], plain_ms=train["bwd_plain_ms"],
+             bound_ms=train["bwd_bound_ms"], bound_by=train["bwd_bound_by"],
+             **common),
+    ]}
     out_dir = HERE / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(dict(
         device=name, nvidia_smi=smi, torch=torch.__version__,
         cuda=torch.version.cuda, build_s=build_s, kernel_rows=rows,
-        serving=serving, record=record), indent=1))
+        big_gram=big, serving=serving, gradient=grad, record=record), indent=1))
 
     log(smi)
     log(json.dumps(record))

@@ -1,4 +1,4 @@
-"""The port's CUDA Gram kernel on the card (marker `cuda`; skips without one).
+"""The port's CUDA Gram kernels on the card (marker `cuda`; skips without one).
 
 This file imports no JAX, so it runs on a machine with a card and PyTorch
 alone (the repo's conftest imports JAX, hence `--noconftest`):
@@ -7,7 +7,9 @@ alone (the repo's conftest imports JAX, hence `--noconftest`):
 
 Tolerances: fp32 rtol = atol = 2e-5 (tests/test_pallas.py's), fp64 1e-12
 (same expansion, only the order of a 4-term sum differs); gradients fp32
-1e-4 relative to their largest entry (tests/test_pallas.py's VJP tolerance).
+1e-4 and fp64 1e-10, relative to their largest entry (tests/test_pallas.py's
+VJP tolerance; the kernel sums gK (z - x) where the plain version sums
+gK z - (sum gK) x).
 """
 
 import numpy as np
@@ -22,6 +24,7 @@ pytestmark = pytest.mark.cuda
 
 SHAPES = [(1, 100, 100, 4), (1, 256, 100, 4), (1, 4096, 100, 4),
           (2, 131, 77, 3), (3, 1, 1, 9)]
+TRAIN = (1, 8611, 100, 4)       # the flagship's full-batch training Gram
 
 
 @pytest.fixture
@@ -35,12 +38,25 @@ def dev():
 
 
 def _inputs(dev, shape, dtype, seed=0):
+    """X1, X2 and ks; inputs scaled so that d2 is of order 4 at any Dx, as
+    lengthscale-scaled inputs are, and K is not all but its diagonal."""
     Dy, N, M, Dx = shape
     g = torch.Generator(device=dev).manual_seed(seed)
-    X1 = torch.randn(Dy, N, Dx, generator=g, device=dev, dtype=dtype)
-    X2 = torch.randn(Dy, M, Dx, generator=g, device=dev, dtype=dtype)
+    sc = min(1.0, 2.0 / Dx ** 0.5)
+    X1 = sc * torch.randn(Dy, N, Dx, generator=g, device=dev, dtype=dtype)
+    X2 = sc * torch.randn(Dy, M, Dx, generator=g, device=dev, dtype=dtype)
     ks = torch.rand(Dy, generator=g, device=dev, dtype=dtype) + 0.5
     return X1, X2, ks
+
+
+def _close(got, want, tol):
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                               rtol=tol, atol=tol)
+
+
+def _close_scaled(got, want, tol):
+    s = float(want.abs().max()) if want.numel() else 1.0
+    _close(got / (s or 1.0), want / (s or 1.0), tol)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
@@ -53,9 +69,23 @@ def test_kernel_matches_plain_version(dev, shape, dtype):
     assert R.LAUNCHES == before + 1
     assert out.shape == shape[:3] and out.dtype == dtype
     tol = 2e-5 if dtype == torch.float32 else 1e-12
-    np.testing.assert_allclose(out.cpu().numpy(),
-                               R.rbf_gram_reference(X1, X2, ks).cpu().numpy(),
-                               rtol=tol, atol=tol)
+    _close(out, R.rbf_gram_reference(X1, X2, ks), tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+# (2, 37, 300, 50): Z too wide for the shared-memory budget, staged in chunks
+@pytest.mark.parametrize("shape", SHAPES + [TRAIN, (2, 37, 300, 50)])
+def test_pair_kernel_matches_plain_version(dev, shape, dtype):
+    Xs, Zs, ks = _inputs(dev, shape, dtype)
+    before = R.LAUNCHES
+    Kxz, Kzz = R.rbf_gram_pair(Xs, Zs, ks)
+    torch.cuda.synchronize()
+    assert R.LAUNCHES == before + 1
+    Dy, N, M, _ = shape
+    assert Kxz.shape == (Dy, N, M) and Kzz.shape == (Dy, M, M)
+    tol = 2e-5 if dtype == torch.float32 else 1e-12
+    for got, want in zip((Kxz, Kzz), R.rbf_gram_pair_reference(Xs, Zs, ks)):
+        _close(got, want, tol)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
@@ -69,9 +99,54 @@ def test_gradients_match_autograd_of_plain_version(dev, dtype):
         grads.append([t.grad for t in leaves])
     tol = 1e-4 if dtype == torch.float32 else 1e-10
     for a, b in zip(*grads):
-        s = float(b.abs().max())
-        np.testing.assert_allclose((a / s).cpu().numpy(), (b / s).cpu().numpy(),
-                                   rtol=tol, atol=tol)
+        _close_scaled(a, b, tol)
+
+
+@pytest.mark.parametrize("pair", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("shape", [(2, 131, 77, 3), (1, 4096, 100, 4), TRAIN,
+                                   (3, 1, 1, 9), (2, 37, 300, 50)])
+def test_backward_kernel_matches_plain_version(dev, shape, dtype, pair):
+    Xs, Zs, ks = _inputs(dev, shape, dtype, seed=2)
+    Dy, N, M, _ = shape
+    gen = torch.Generator(device=dev).manual_seed(3)
+    g_xz = torch.randn(Dy, N, M, generator=gen, device=dev, dtype=dtype)
+    g_zz = torch.randn(Dy, M, M, generator=gen, device=dev, dtype=dtype)
+    before = R.BWD_LAUNCHES
+    if pair:
+        got = R._launch_bwd(Xs, Zs, ks, g_xz, g_zz)
+        want = R.rbf_gram_pair_bwd(Xs, Zs, ks, *R.rbf_gram_pair_reference(
+            Xs, Zs, ks), g_xz, g_zz)
+    else:
+        got = R._launch_bwd(Xs, Zs, ks, g_xz)
+        want = R.rbf_gram_bwd(Xs, Zs, ks, R.rbf_gram_reference(Xs, Zs, ks), g_xz)
+    torch.cuda.synchronize()
+    assert R.BWD_LAUNCHES == before + 1
+    tol = 1e-4 if dtype == torch.float32 else 1e-10
+    for a, b in zip(got, want):
+        assert a.shape == b.shape and a.dtype == dtype
+        _close_scaled(a, b, tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_backward_kernel_is_bitwise_repeatable(dev, dtype):
+    # no floating-point atomics: the partial sums are reduced in a fixed order
+    Xs, Zs, ks = _inputs(dev, TRAIN, dtype, seed=4)
+    g_xz = torch.randn(1, 8611, 100, device=dev, dtype=dtype)
+    g_zz = torch.randn(1, 100, 100, device=dev, dtype=dtype)
+    first = R._launch_bwd(Xs, Zs, ks, g_xz, g_zz)
+    for _ in range(3):
+        again = R._launch_bwd(Xs, Zs, ks, g_xz, g_zz)
+        for a, b in zip(first, again):
+            assert torch.equal(a, b)
+
+
+def test_gram_beyond_the_old_grid_cap(dev):
+    # more rows than 65535 tiles of 32 (2,097,120): the flat grid takes it
+    X1, X2, ks = _inputs(dev, (1, 2_200_000, 8, 1), torch.float32, seed=5)
+    out = R.rbf_gram(X1, X2, ks)
+    torch.cuda.synchronize()
+    _close(out, R.rbf_gram_reference(X1, X2, ks), 2e-5)
 
 
 def test_wrapper_refuses_what_the_kernel_does_not_take(dev):
@@ -84,23 +159,28 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(dev):
         R.rbf_gram(X1, X2[..., :3].contiguous(), ks)
     with pytest.raises(ValueError, match="CUDA"):
         R.rbf_gram(X1, X2.cpu(), ks)
-    # more Dy slices than the grid's z limit (65535): refused at launch
+    with pytest.raises(ValueError, match="cotangent shape"):
+        R._launch_bwd(X1, X2, ks, torch.zeros(1, 64, 31, device=dev))
+    # more Dy slices than a grid dimension's 65535: the flat grid takes them
     before = R.LAUNCHES
-    with pytest.raises(RuntimeError, match="launch failed"):
-        R.rbf_gram(*_inputs(dev, (70000, 1, 1, 1), torch.float32))
-    assert R.LAUNCHES == before
+    X1, X2, ks = _inputs(dev, (70000, 1, 1, 1), torch.float32)
+    out = R.rbf_gram(X1, X2, ks)
+    torch.cuda.synchronize()
+    assert R.LAUNCHES == before + 1
+    _close(out, R.rbf_gram_reference(X1, X2, ks), 2e-5)
 
 
-def test_predictor_goes_through_the_kernel_twice_per_request(dev):
+def test_predictor_goes_through_the_kernel_once_per_request(dev):
     rng = np.random.RandomState(0)
     X = rng.randn(50, 4)
     spec = weights.flagship_spec(50, M=10, quad=20)
     params = weights.flagship_params(spec, X, seed=0, device=dev,
                                      dtype=torch.float32)
     pred = Predictor(spec, params, buckets=(16, 64))
-    before = R.LAUNCHES
+    before, bwd_before = R.LAUNCHES, R.BWD_LAUNCHES
     out = pred.predict(X[:20], samples=30)
     lp = pred.log_prob(X[:20], rng.randn(20, 1))
-    assert R.LAUNCHES == before + 4
+    assert R.LAUNCHES == before + 2
+    assert R.BWD_LAUNCHES == bwd_before
     assert np.isfinite(out["mean"]).all() and np.isfinite(lp).all()
     assert (out["lower"] <= out["upper"]).all()

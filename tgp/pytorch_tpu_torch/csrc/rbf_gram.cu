@@ -2,133 +2,164 @@
 //
 //   K[d, i, j] = ks[d] * exp(-0.5 * max(|x_di|^2 + |z_dj|^2 - 2 x_di . z_dj, 0))
 //
-// on inputs already divided by the ARD lengthscale: X1s (Dy, N, Dx),
-// X2s (Dy, M, Dx), ks (Dy,), out (Dy, N, M), all contiguous row-major.
+// on inputs already divided by the ARD lengthscale: X (Dy, N, Dx),
+// Z (Dy, M, Dx), ks (Dy,), all contiguous row-major.  One launch writes
+// K_xz = K(X, Z) (Dy, N, M) and, when Kzz is given, K_zz = K(Z, Z) (Dy, M, M):
+// the row set is [X rows; Z rows], each row against Z.  Without Kzz it is the
+// single Gram K(X1, X2).
 //
 // Replaces: tgp/pytorch_tpu/ops/pallas/rbf_gram.py `_forward` (pallas_call
-// at :85, body `_gram_kernel` at :50-63).  Same arithmetic: the squared
-// distance uses the |x|^2 + |z|^2 - 2 x.z expansion clamped at 0, exactly as
-// the reference and `rbf_gram_reference` compute it, not the direct
-// difference; the output scale ks is applied in the epilogue.
+// at :85, body `_gram_kernel` at :50-63), which `marginal_qf` reached twice,
+// for K_zz and K_xz.  Same arithmetic: the |x|^2 + |z|^2 - 2 x.z expansion
+// clamped at 0, with each sum over Dx taken in index order, and ks applied
+// last.  No tensor cores: Dx = 4 is below wgmma's depth, and TF32 would cost
+// three digits of a Gram that feeds an ill-conditioned Cholesky (fp32 is
+// already 8e-3 off fp64 on the flagship's predictive variance).
 //
-// Bound on the card: memory and launch cost.  At the largest serving shape
-// (1, 4096, 4) x (1, 100, 4) in fp32 the function moves 1.7 MB (mostly the
-// (N, M) output), 0.5 us at 3.35 TB/s, and does 4.9 MFLOP plus 409,600 exps,
-// far below the fp32 rate; K_zz (100 x 100) moves 43 KB.  Each serving
-// request launches it twice (K_zz, K_xz), so launch latency, not bandwidth,
-// is what a request sees.
+// Bound on the card: bytes, and the launch.  The flagship pair at bucket 4096
+// (Dx = 4, M = 100) moves 1.75 MB in fp32, 0.52 us at 3.35 TB/s, almost all
+// of it the outputs; at the training shape (8611 rows) 3.62 MB, 1.08 us.  Its
+// operations (about 30 per output) are a tenth of that at the fp32 rate.
+// The launch costs about 2 us, so the pair takes one launch, not two.
 //
-// Design for that bound: one pass, one launch, no scratch.  A block owns a
-// TN x TM output tile; it stages its TN rows of X1s and TM rows of X2s in
-// shared memory in chunks of DK features (any Dx), and each thread keeps
-// RPT rows of one output column in registers, so the (N, M) distance matrix
-// never touches device memory and each output is written once.  Threads of
-// a warp own neighbouring columns, so the stores are coalesced; ragged tile
-// edges are masked.  Tensor cores (wgmma) and TMA buy nothing at Dx = 4 and
-// are left to a later change.
+// Design for that bound:
+//   * A block owns TN whole output rows, all M columns, so its output is one
+//     contiguous span of TN * M values.  Each thread computes a group of V
+//     consecutive outputs (V = 4 floats or 2 doubles) and writes it with one
+//     16-byte store; consecutive threads own consecutive groups, so a warp
+//     writes 512 contiguous bytes.  A group that is unaligned or runs past M
+//     is written value by value.
+//   * Z, transposed, and its squared norms are staged once per block in
+//     shared memory ((Dx + 1) * M values, 2 KB at the flagship), and read back
+//     16 bytes at a time without bank conflicts.  Only where (Dx + 1) * M
+//     values exceed 48 KB is Z staged in column chunks of MC.
+//   * TN = 256 / (groups per row), so each of the 256 threads owns one group:
+//     TN = 10 at M = 100 in fp32, which gives 36 blocks at bucket 256, 420 at
+//     bucket 4096 and 872 at 8611 rows for the 132 SMs, every output in
+//     flight at once.
+//   * The grid is flat: Dy x row tiles in gridDim.x (up to 2^31 - 1 blocks),
+//     so neither N nor Dy meets a grid dimension's 65535 cap.
 //
 // Launches on the caller's stream, does not synchronise, allocates nothing,
 // and returns cudaGetLastError() so the wrapper can raise on a refused launch.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "rbf_gram_common.cuh"
 
 namespace {
 
-constexpr int TM = 32;              // output columns per block (one warp wide)
-constexpr int ROWS = 8;             // thread rows per block
-constexpr int RPT = 4;              // output rows per thread
-constexpr int TN = ROWS * RPT;      // output rows per block
-constexpr int DK = 8;               // features staged per chunk
+using rbf::Pack;
 
-__device__ __forceinline__ float dev_exp(float v) { return expf(v); }
-__device__ __forceinline__ double dev_exp(double v) { return exp(v); }
-
+// Stage rows [c0, c0 + mc) of z (each Dx values) transposed into
+// zt[k * ld + j] and their squared norms into zn[j], summed over k in index
+// order; columns [mc, mcp) are zero so that 16-byte groups can run past mc.
+// One thread per column.  The caller syncs before reading zt and zn.
 template <typename T>
-__global__ void __launch_bounds__(TM * ROWS)
-rbf_gram_kernel(const T* __restrict__ X1, const T* __restrict__ X2,
-                const T* __restrict__ ks, T* __restrict__ out,
-                int N, int M, int Dx) {
-    __shared__ T xs[TN][DK + 1];    // +1 pads the row stride off the banks
-    __shared__ T zs[TM][DK + 1];
-
-    const int d = blockIdx.z;
-    const int n0 = blockIdx.y * TN;
-    const int m0 = blockIdx.x * TM;
-    const int tx = threadIdx.x;     // column within the tile
-    const int ty = threadIdx.y;     // first of this thread's rows
-    const int tid = ty * TM + tx;
-    const T* x = X1 + (int64_t)d * N * Dx;
-    const T* z = X2 + (int64_t)d * M * Dx;
-
-    T cross[RPT], xn[RPT], zn = T(0);
-#pragma unroll
-    for (int r = 0; r < RPT; ++r) { cross[r] = T(0); xn[r] = T(0); }
-
-    for (int k0 = 0; k0 < Dx; k0 += DK) {
-        for (int i = tid; i < TN * DK; i += TM * ROWS) {
-            const int r = i / DK, k = i % DK;
-            const int n = n0 + r, kk = k0 + k;
-            xs[r][k] = (n < N && kk < Dx) ? x[(int64_t)n * Dx + kk] : T(0);
+__device__ __forceinline__ void stage_z(const T* __restrict__ z, int c0, int mc,
+                                        int mcp, int Dx, int ld, T* zt, T* zn) {
+    for (int j = threadIdx.x; j < mcp; j += blockDim.x) {
+        const T* zr = z + (int64_t)(c0 + j) * Dx;
+        T acc = T(0);
+        for (int k = 0; k < Dx; ++k) {
+            const T v = j < mc ? zr[k] : T(0);
+            zt[k * ld + j] = v;
+            acc += v * v;
         }
-        for (int i = tid; i < TM * DK; i += TM * ROWS) {
-            const int c = i / DK, k = i % DK;
-            const int m = m0 + c, kk = k0 + k;
-            zs[c][k] = (m < M && kk < Dx) ? z[(int64_t)m * Dx + kk] : T(0);
-        }
-        __syncthreads();
-#pragma unroll
-        for (int k = 0; k < DK; ++k) {
-            const T zv = zs[tx][k];
-            zn += zv * zv;
-#pragma unroll
-            for (int r = 0; r < RPT; ++r) {
-                const T xv = xs[ty + r * ROWS][k];   // broadcast within a warp
-                xn[r] += xv * xv;
-                cross[r] += xv * zv;
-            }
-        }
-        __syncthreads();
-    }
-
-    const int m = m0 + tx;
-    if (m >= M) return;
-    const T s = ks[d];
-#pragma unroll
-    for (int r = 0; r < RPT; ++r) {
-        const int n = n0 + ty + r * ROWS;
-        if (n < N) {
-            T d2 = xn[r] + zn - T(2) * cross[r];
-            d2 = d2 > T(0) ? d2 : T(0);
-            out[((int64_t)d * N + n) * M + m] = s * dev_exp(T(-0.5) * d2);
-        }
+        zn[j] = acc;
     }
 }
 
 template <typename T>
-int launch(const T* X1, const T* X2, const T* ks, T* out,
-           int Dy, int N, int M, int Dx, void* stream) {
-    const dim3 block(TM, ROWS);
-    const dim3 grid((M + TM - 1) / TM, (N + TN - 1) / TN, Dy);
-    rbf_gram_kernel<T><<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
-        X1, X2, ks, out, N, M, Dx);
-    return static_cast<int>(cudaGetLastError());
+__global__ void __launch_bounds__(rbf::THREADS)
+rbf_gram_kernel(const T* __restrict__ X, const T* __restrict__ Z,
+                const T* __restrict__ ks, T* __restrict__ Kxz,
+                T* __restrict__ Kzz, int N, int M, int Dx, int TN,
+                int tiles_x, int tiles, int MC) {
+    constexpr int V = Pack<T>::V;
+    extern __shared__ __align__(16) unsigned char smem[];
+    T* zt = reinterpret_cast<T*>(smem);          // [Dx][MC] a chunk of Z, transposed
+    T* zn = zt + (size_t)Dx * MC;                // [MC]     its squared norms
+
+    const rbf::Tile tl = rbf::tile_of(N, M, TN, tiles_x, tiles);
+    const T* z = Z + (int64_t)tl.d * M * Dx;
+    const T* x = (tl.zpart ? z : X + (int64_t)tl.d * N * Dx)
+        + (int64_t)tl.row0 * Dx;
+    T* out = (tl.zpart ? Kzz : Kxz) + ((int64_t)tl.d * tl.rows + tl.row0) * M;
+    const T s = ks[tl.d];
+
+    for (int c0 = 0; c0 < M; c0 += MC) {
+        const int mc = min(MC, M - c0);
+        const int G = (mc + V - 1) / V;          // groups per row in this chunk
+        stage_z(z, c0, mc, G * V, Dx, MC, zt, zn);
+        __syncthreads();
+        for (int gi = threadIdx.x; gi < tl.nrows * G; gi += blockDim.x) {
+            const int i = gi / G;
+            const int j0 = (gi - i * G) * V;
+            const T* xr = x + (int64_t)i * Dx;
+            T xn = T(0), cross[V];
+#pragma unroll
+            for (int v = 0; v < V; ++v) cross[v] = T(0);
+            for (int k = 0; k < Dx; ++k) {
+                const T xv = __ldg(xr + k);          // one row per ~G threads: broadcast
+                const Pack<T> zv = *reinterpret_cast<const Pack<T>*>(zt + k * MC + j0);
+                xn += xv * xv;
+#pragma unroll
+                for (int v = 0; v < V; ++v) cross[v] += xv * zv.v[v];
+            }
+            const Pack<T> znv = *reinterpret_cast<const Pack<T>*>(zn + j0);
+            Pack<T> r;
+#pragma unroll
+            for (int v = 0; v < V; ++v) r.v[v] = s * rbf::rbf_e(xn, znv.v[v], cross[v]);
+            T* dst = out + (int64_t)i * M + c0 + j0;
+            if (j0 + V <= mc && (reinterpret_cast<uintptr_t>(dst) & 15) == 0) {
+                *reinterpret_cast<Pack<T>*>(dst) = r;
+            } else {
+#pragma unroll
+                for (int v = 0; v < V; ++v)
+                    if (j0 + v < mc) dst[v] = r.v[v];
+            }
+        }
+        __syncthreads();
+    }
+}
+
+template <typename T>
+int launch(const T* X, const T* Z, const T* ks, T* Kxz, T* Kzz, int Dy, int N,
+           int M, int Dx, void* stream) {
+    constexpr int V = Pack<T>::V;
+    if (Dy <= 0 || N < 0 || M <= 0 || Dx < 0) return (int)cudaErrorInvalidValue;
+    // the widest chunk of Z (a multiple of V columns) whose values and norms
+    // fit the budget, and no wider than Z
+    int MC = rbf::SMEM_BYTES / ((Dx + 1) * (int)sizeof(T)) / V * V;
+    if (MC < V) return (int)cudaErrorInvalidValue;
+    MC = std::min(MC, rbf::round_up(M, V));
+    const int TN = std::max(1, rbf::THREADS / (MC / V));
+    const int64_t tiles_x = ((int64_t)N + TN - 1) / TN;
+    const int64_t tiles = tiles_x + (Kzz ? ((int64_t)M + TN - 1) / TN : 0);
+    const int64_t blocks = (int64_t)Dy * tiles;
+    if (blocks <= 0 || blocks > INT32_MAX) return (int)cudaErrorInvalidConfiguration;
+    const size_t smem = (size_t)(Dx + 1) * MC * sizeof(T);
+    rbf_gram_kernel<T><<<(unsigned)blocks, rbf::THREADS, smem,
+                         static_cast<cudaStream_t>(stream)>>>(
+        X, Z, ks, Kxz, Kzz, N, M, Dx, TN, (int)tiles_x, (int)tiles, MC);
+    return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" {
 
-// A grid beyond the card's limits (more than 65535 row tiles or Dy slices)
-// is refused at launch and reported through the return value.
-int rbf_gram_f32(const float* X1, const float* X2, const float* ks, float* out,
-                 int Dy, int N, int M, int Dx, void* stream) {
-    return launch<float>(X1, X2, ks, out, Dy, N, M, Dx, stream);
+// K_xz into Kxz and, unless Kzz is null, K_zz into Kzz.  A grid of more than
+// 2^31 - 1 blocks (Dy x row tiles), or a Dx too wide for V columns of Z in
+// the shared-memory budget (Dx > 3071), is refused through the return value.
+int rbf_gram_f32(const float* X, const float* Z, const float* ks, float* Kxz,
+                 float* Kzz, int Dy, int N, int M, int Dx, void* stream) {
+    return launch<float>(X, Z, ks, Kxz, Kzz, Dy, N, M, Dx, stream);
 }
 
-int rbf_gram_f64(const double* X1, const double* X2, const double* ks,
-                 double* out, int Dy, int N, int M, int Dx, void* stream) {
-    return launch<double>(X1, X2, ks, out, Dy, N, M, Dx, stream);
+int rbf_gram_f64(const double* X, const double* Z, const double* ks,
+                 double* Kxz, double* Kzz, int Dy, int N, int M, int Dx,
+                 void* stream) {
+    return launch<double>(X, Z, ks, Kxz, Kzz, Dy, N, M, Dx, stream);
 }
 
 }  // extern "C"

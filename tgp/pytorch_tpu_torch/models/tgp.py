@@ -225,8 +225,8 @@ def _ensure_3d(spec: TGPSpec, X):
 def marginal_qf(spec: TGPSpec, params, X, *, diagonal: bool = True):
     """Moments of q(f) at locations X: (mu, var), each (Dy, MB).
 
-    Two Grams per call (K_zz and K_xz), both through the CUDA kernel when
-    the tensors lie on the card.
+    Both Grams (K_xz and K_zz) come from one `gram_pair` call: one launch of
+    the CUDA kernel when the tensors lie on the card.
     """
     if not diagonal:
         raise NotImplementedError(f"diagonal=False {_TODO_QF}")
@@ -238,8 +238,7 @@ def marginal_qf(spec: TGPSpec, params, X, *, diagonal: bool = True):
     kp = _expand_tree(params["kernel"], Dy) if spec.K_is_shared else params["kernel"]
     mp = _expand_tree(params["mean"], Dy) if spec.mean_is_shared else params["mean"]
 
-    Kzz = kernels_mod.gram(spec.kernel, kp, Z, Z, same=False)
-    Kxz = kernels_mod.gram(spec.kernel, kp, X, Z, same=False)
+    Kxz, Kzz = kernels_mod.gram_pair(spec.kernel, kp, X, Z)
     mu_x = mean_apply(spec.mean, mp, X)
     L, _ = safe_cholesky(Kzz)
 

@@ -3,12 +3,13 @@ package's `ops/kernels.py`.
 
   * a kernel is a static `KernelSpec` tree plus a dict of parameters,
   * `gram(spec, params, X1, X2, same=...)` returns (Dy, N, M) Gram matrices;
-    `gram_diag(spec, params, X)` returns (Dy, N) diagonals.
+    `gram_diag(spec, params, X)` returns (Dy, N) diagonals;
+  * `gram_pair(spec, params, X, Z)` returns (K(X, Z), K(Z, Z)) in one call.
 
 Routing departs from the JAX package on purpose: its gate `_pallas_ok`
 sends only fp32 Grams of at least 2^18 elements to Pallas, to amortise a
 launch on the TPU.  Here every `rbf` or `scale(rbf)` Gram of a CUDA tensor,
-in fp32 and fp64, goes through the CUDA kernel (`ops/rbf_gram.py`), and a
+in fp32 and fp64, goes through the CUDA kernels (`ops/rbf_gram.py`), and a
 CPU tensor takes the plain version.  Other kinds raise NotImplementedError
 until ROADMAP Queue 1 item 17 ports them.
 """
@@ -21,7 +22,7 @@ from typing import Tuple
 import torch
 
 from .. import config as cfg
-from .rbf_gram import rbf_gram, sq_dist as _sq_dist  # noqa: F401 (JAX name)
+from .rbf_gram import rbf_gram, rbf_gram_pair, sq_dist as _sq_dist  # noqa: F401 (JAX name)
 from .transforms import softplus, np_inv_softplus
 
 _TODO = "is not ported yet (ROADMAP Queue 1 item 17)"
@@ -89,15 +90,21 @@ def init_params(spec: KernelSpec, Dy: int, Dx: int, init: dict | None = None,
     return build(spec)
 
 
-def _scaled(X, raw_ls):
-    """X / lengthscale, broadcasting ARD lengthscales (Dy,Dx) over (Dy,N,Dx)."""
-    return X / softplus(raw_ls)[:, None, :]
-
-
-def _rbf_scaled_gram(raw_ls, ks, X1, X2):
-    X1s = _scaled(X1, raw_ls).contiguous()
-    X2s = _scaled(X2, raw_ls).contiguous()
-    return rbf_gram(X1s, X2s, ks.contiguous())
+def _rbf_parts(spec: KernelSpec, params, like):
+    """(lengthscale (Dy, 1, Dx), output scale (Dy,)) of an rbf or scale(rbf)
+    spec; the output scale of a bare rbf is 1."""
+    if spec.kind == "rbf":
+        ks = torch.ones((like.shape[0],), dtype=like.dtype, device=like.device)
+        raw_ls = params["raw_lengthscale"]
+    elif spec.kind == "scale":
+        child = spec.children[0]
+        if child.kind != "rbf":
+            raise NotImplementedError(f"scale({child.kind}) {_TODO}")
+        ks = softplus(params["raw_outputscale"])
+        raw_ls = params["child"]["raw_lengthscale"]
+    else:
+        raise NotImplementedError(f"kernel kind {spec.kind!r} {_TODO}")
+    return softplus(raw_ls)[:, None, :], ks.contiguous()
 
 
 def gram(spec: KernelSpec, params, X1, X2, same: bool = False):
@@ -106,16 +113,20 @@ def gram(spec: KernelSpec, params, X1, X2, same: bool = False):
     `same` marks K_xx evaluations (it only matters for white-noise kernels,
     which are not ported yet).
     """
-    if spec.kind == "rbf":
-        ones = torch.ones((X1.shape[0],), dtype=X1.dtype, device=X1.device)
-        return _rbf_scaled_gram(params["raw_lengthscale"], ones, X1, X2)
-    if spec.kind == "scale":
-        child = spec.children[0]
-        if child.kind != "rbf":
-            raise NotImplementedError(f"scale({child.kind}) {_TODO}")
-        ks = softplus(params["raw_outputscale"])
-        return _rbf_scaled_gram(params["child"]["raw_lengthscale"], ks, X1, X2)
-    raise NotImplementedError(f"kernel kind {spec.kind!r} {_TODO}")
+    ls, ks = _rbf_parts(spec, params, X1)
+    return rbf_gram((X1 / ls).contiguous(), (X2 / ls).contiguous(), ks)
+
+
+def gram_pair(spec: KernelSpec, params, X, Z):
+    """(K(X, Z), K(Z, Z)): (Dy, N, M) and (Dy, M, M), the two Grams of
+    `marginal_qf` (port only; the JAX package calls `gram` twice).
+
+    The lengthscale and output scale are computed once and Z is scaled once;
+    a CUDA tensor takes one kernel launch for both Grams, a CPU tensor two
+    `rbf_gram_reference` calls.
+    """
+    ls, ks = _rbf_parts(spec, params, X)
+    return rbf_gram_pair((X / ls).contiguous(), (Z / ls).contiguous(), ks)
 
 
 def gram_diag(spec: KernelSpec, params, X, same: bool = True):

@@ -1,23 +1,33 @@
-"""Fused ARD-RBF Gram: the CUDA kernel `csrc/rbf_gram.cu` and its wrapper.
+"""Fused ARD-RBF Gram and its VJP: the CUDA kernels in `csrc/` and their wrappers.
 
 Computes K[d, i, j] = ks_d * exp(-0.5 * max(|x_di|^2 + |z_dj|^2 - 2 x_di.z_dj, 0))
 on lengthscale-scaled inputs X1s (Dy, N, Dx), X2s (Dy, M, Dx), ks (Dy,).
 
-Replaces the TPU kernel `tgp/pytorch_tpu/ops/pallas/rbf_gram.py::_forward`
-(`pallas_call` at :85), reached through `rbf_gram_pallas`.  Its bound on the
-card is memory and launch cost: at the largest serving shape (1, 4096, 4) x
-(1, 100, 4) in fp32 it moves 1.7 MB (0.5 us at 3.35 TB/s) and does 4.9 MFLOP
-plus 409,600 exps.  A serving request launches it twice (K_zz and K_xz).  The
-design answers that bound with one launch that writes each output once and
-keeps the distance tile in registers; see the source note in the .cu file.
+  * `rbf_gram(X1s, X2s, ks)`: the single Gram, the JAX package's
+    `rbf_gram_pallas`.
+  * `rbf_gram_pair(Xs, Zs, ks)`: (K(X, Z), K(Z, Z)) from one launch, the two
+    Grams of a `marginal_qf`.
 
-Routing: a CUDA tensor always launches the kernel (or raises); a CPU tensor
-takes `rbf_gram_reference`, the plain torch version of the same function.
-There is no third path.  The kernel is built with nvcc into `build/kernels/`
-at first use and bound with ctypes.
+Kernels:
+  * `csrc/rbf_gram.cu` replaces the TPU kernel
+    `tgp/pytorch_tpu/ops/pallas/rbf_gram.py::_forward` (`pallas_call` at :85).
+    Bound by bytes and the launch: the flagship pair at bucket 4096 moves
+    1.75 MB (0.52 us at 3.35 TB/s), so both Grams take one launch, and a block
+    writes whole output rows with 16-byte stores.
+  * `csrc/rbf_gram_bwd.cu` replaces its VJP `_bwd` (rbf_gram.py:114-131),
+    which the JAX package leaves to XLA.  Bound by bytes (3.72 MB at the
+    training shape 8611 x 100, 1.11 us): it reads g once, recomputes K in
+    registers, and sums per-block partials in a fixed order (no atomics, the
+    same bits on every run).
+The source notes in the .cu files give the designs.
 
-The backward is `rbf_gram_bwd`, a torch transcription of the JAX package's
-`_bwd` (rbf_gram.py:114-131), which is jnp outside Pallas there too.
+Routing: a CUDA tensor always launches the kernels (or raises); a CPU tensor
+takes the plain torch versions, `rbf_gram_reference` forward and autograd
+through it.  `rbf_gram_bwd` (a transcription of `_bwd`) and
+`rbf_gram_pair_bwd` are the backward kernel's plain versions, which the tests
+and `chip_smoke.py` hold it against.  There is no third path.  Each source is
+built with its own nvcc, all at once, into `build/kernels/` at first use and
+bound with ctypes.
 """
 
 from __future__ import annotations
@@ -29,18 +39,24 @@ import threading
 from pathlib import Path
 
 import torch
+from torch.autograd.function import once_differentiable
 
-_SRC = Path(__file__).resolve().parents[1] / "csrc" / "rbf_gram.cu"
+_CSRC = Path(__file__).resolve().parents[1] / "csrc"
+_HEADER = _CSRC / "rbf_gram_common.cuh"
 _BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-_LIB_PATH = _BUILD_DIR / "librbf_gram.so"
+#: (source, library) of each kernel
+_UNITS = [(_CSRC / "rbf_gram.cu", _BUILD_DIR / "librbf_gram.so"),
+          (_CSRC / "rbf_gram_bwd.cu", _BUILD_DIR / "librbf_gram_bwd.so")]
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
 
-#: kernel launches so far; a run sets it to 0 and reads it to prove that a
-#: path went through the kernel
+#: forward kernel launches so far; a run sets it to 0 and reads it to prove
+#: that a path went through the kernel
 LAUNCHES = 0
+#: backward kernel calls so far (each is the block pass and its reduction)
+BWD_LAUNCHES = 0
 
-_lib = None
+_libs = None
 _lib_lock = threading.Lock()
 
 
@@ -51,51 +67,80 @@ def _nvcc() -> str:
 
 
 def build() -> str:
-    """Compile `csrc/rbf_gram.cu` into `build/kernels/` if the library is
-    missing or older than the source; returns nvcc's output, with ptxas's
-    registers, shared memory and spills ('' if the library was current)."""
-    if _LIB_PATH.exists() and _LIB_PATH.stat().st_mtime >= _SRC.stat().st_mtime:
+    """Compile each stale kernel source into its library in `build/kernels/`,
+    one nvcc per source, all started together; returns nvcc's output, with
+    ptxas's registers, shared memory and spills ('' if all were current)."""
+    stale = [(src, lib) for src, lib in _UNITS
+             if not lib.exists() or lib.stat().st_mtime
+             < max(src.stat().st_mtime, _HEADER.stat().st_mtime)]
+    if not stale:
         return ""
     _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = _LIB_PATH.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", str(tmp), str(_SRC)]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
-    os.replace(tmp, _LIB_PATH)
-    return res.stdout + res.stderr
+    jobs = []
+    for src, lib in stale:
+        tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", str(tmp), str(src)]
+        jobs.append((lib, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    out, failed = [], []
+    for lib, tmp, proc in jobs:         # wait for every nvcc before raising
+        stdout, stderr = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed on {lib.name} ({proc.returncode}):\n{stderr}")
+        else:
+            os.replace(tmp, lib)
+            out.append(stdout + stderr)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return "".join(out)
 
 
 def _load():
-    global _lib
+    global _libs
     with _lib_lock:
-        if _lib is None:
+        if _libs is None:
             build()
-            lib = ctypes.CDLL(str(_LIB_PATH))
-            for fn in (lib.rbf_gram_f32, lib.rbf_gram_f64):
-                fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 \
-                    + [ctypes.c_void_p]
-                fn.restype = ctypes.c_int
-            _lib = lib
-    return _lib
+            fwd, bwd = (ctypes.CDLL(str(lib)) for _, lib in _UNITS)
+            ptr, i32 = ctypes.c_void_p, ctypes.c_int
+            for fn in (fwd.rbf_gram_f32, fwd.rbf_gram_f64):
+                fn.argtypes = [ptr] * 5 + [i32] * 4 + [ptr]
+                fn.restype = i32
+            for fn in (bwd.rbf_gram_bwd_f32, bwd.rbf_gram_bwd_f64):
+                fn.argtypes = [ptr] * 9 + [i32] * 4 + [ptr]
+                fn.restype = i32
+            for fn in (bwd.rbf_gram_bwd_scratch_f32, bwd.rbf_gram_bwd_scratch_f64):
+                fn.argtypes = [i32] * 5
+                fn.restype = ctypes.c_int64
+            _libs = (fwd, bwd)
+    return _libs
 
 
 # ---------------------------------------------------------------------------
-# plain version
+# plain versions
 # ---------------------------------------------------------------------------
 
 def sq_dist(X1s, X2s):
     """Batched squared distances via the |x|^2 + |z|^2 - 2 x.z expansion,
-    clamped at 0 (the JAX package's `kernels._sq_dist`): (Dy, N, M)."""
+    clamped at 0 (the JAX package's `kernels._sq_dist`): (Dy, N, M).
+
+    `torch.maximum`, like `jnp.maximum`, passes half the gradient where d2 is
+    exactly 0 (K_zz's diagonal), so autograd through it is JAX's gradient.
+    """
     n1 = torch.sum(torch.square(X1s), dim=-1)
     n2 = torch.sum(torch.square(X2s), dim=-1)
     cross = torch.matmul(X1s, X2s.transpose(-1, -2))
-    return torch.clamp_min(n1[:, :, None] + n2[:, None, :] - 2.0 * cross, 0.0)
+    d2 = n1[:, :, None] + n2[:, None, :] - 2.0 * cross
+    return torch.maximum(d2, d2.new_zeros(()))
 
 
 def rbf_gram_reference(X1s, X2s, ks):
     """Plain torch version, the same expansion as `kernels.py:202-217`."""
     return ks[:, None, None] * torch.exp(-0.5 * sq_dist(X1s, X2s))
+
+
+def rbf_gram_pair_reference(Xs, Zs, ks):
+    """Plain version of the pair: two `rbf_gram_reference` calls."""
+    return rbf_gram_reference(Xs, Zs, ks), rbf_gram_reference(Zs, Zs, ks)
 
 
 def rbf_gram_bwd(X1s, X2s, ks, K, g):
@@ -114,12 +159,21 @@ def rbf_gram_bwd(X1s, X2s, ks, K, g):
     return dX1, dX2, dks
 
 
+def rbf_gram_pair_bwd(Xs, Zs, ks, Kxz, Kzz, g_xz, g_zz):
+    """VJP of the pair by `rbf_gram_bwd` on each Gram: dZ sums K_xz's column
+    gradient and K_zz's row and column gradients."""
+    dX, dZ_xz, dks_xz = rbf_gram_bwd(Xs, Zs, ks, Kxz, g_xz)
+    dZ_row, dZ_col, dks_zz = rbf_gram_bwd(Zs, Zs, ks, Kzz, g_zz)
+    return dX, dZ_xz + dZ_row + dZ_col, dks_xz + dks_zz
+
+
 # ---------------------------------------------------------------------------
-# kernel
+# kernels
 # ---------------------------------------------------------------------------
 
-def _check(X1s, X2s, ks):
-    for name, t in (("X1s", X1s), ("X2s", X2s), ("ks", ks)):
+def _check(X1s, X2s, ks, *gs):
+    for name, t in (("X1s", X1s), ("X2s", X2s), ("ks", ks)) \
+            + tuple(("g", g) for g in gs):
         if t.device.type != "cuda" or t.device != X1s.device:
             raise ValueError(f"{name} must lie on the same CUDA device as X1s, "
                              f"got {t.device}")
@@ -132,47 +186,116 @@ def _check(X1s, X2s, ks):
         raise ValueError("expected X1s (Dy,N,Dx), X2s (Dy,M,Dx), ks (Dy,); got "
                          f"{tuple(X1s.shape)}, {tuple(X2s.shape)}, {tuple(ks.shape)}")
     Dy, N, Dx = X1s.shape
+    M = X2s.shape[1]
     if X2s.shape[0] != Dy or X2s.shape[2] != Dx or ks.shape[0] != Dy:
         raise ValueError("shape mismatch: X1s (Dy,N,Dx), X2s (Dy,M,Dx), ks (Dy,); "
                          f"got {tuple(X1s.shape)}, {tuple(X2s.shape)}, "
                          f"{tuple(ks.shape)}")
-
-
-def _launch(X1s, X2s, ks):
-    """One kernel launch on the current stream; returns the (Dy, N, M) Gram."""
-    global LAUNCHES
-    _check(X1s, X2s, ks)
-    lib = _load()
-    Dy, N, Dx = X1s.shape
-    M = X2s.shape[1]
-    out = torch.empty((Dy, N, M), dtype=X1s.dtype, device=X1s.device)
-    if out.numel() == 0:
-        return out
-    if max(N, M, Dx) >= 2 ** 31:     # ctypes would wrap a C int silently
+    for g, want in zip(gs, ((Dy, N, M), (Dy, M, M))):
+        if tuple(g.shape) != want:
+            raise ValueError(f"cotangent shape {tuple(g.shape)}, expected {want}")
+    # the C interface takes int sizes (ctypes would wrap a larger one
+    # silently); the flat grid holds 2^31 - 1 blocks of Dy x row tiles, and a
+    # launch beyond that is refused through its return value
+    if max(Dy, N, M, Dx) >= 2 ** 31:
         raise ValueError(f"Gram of shape {(Dy, N, M, Dx)} exceeds int32 sizes")
-    fn = lib.rbf_gram_f32 if X1s.dtype == torch.float32 else lib.rbf_gram_f64
-    with torch.cuda.device(X1s.device):
-        stream = torch.cuda.current_stream(X1s.device).cuda_stream
-        err = fn(X1s.data_ptr(), X2s.data_ptr(), ks.data_ptr(), out.data_ptr(),
-                 Dy, N, M, Dx, stream)
+
+
+def _stream(t):
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _launch_pair(Xs, Zs, ks, pair: bool):
+    """One forward launch on the current stream: K(Xs, Zs) (Dy, N, M) and,
+    if `pair`, K(Zs, Zs) (Dy, M, M), else None."""
+    global LAUNCHES
+    _check(Xs, Zs, ks)
+    fwd, _ = _load()
+    Dy, N, Dx = Xs.shape
+    M = Zs.shape[1]
+    Kxz = torch.empty((Dy, N, M), dtype=Xs.dtype, device=Xs.device)
+    Kzz = torch.empty((Dy, M, M), dtype=Xs.dtype, device=Xs.device) if pair \
+        else None
+    if Kxz.numel() == 0 and (Kzz is None or Kzz.numel() == 0):
+        return Kxz, Kzz
+    fn = fwd.rbf_gram_f32 if Xs.dtype == torch.float32 else fwd.rbf_gram_f64
+    with torch.cuda.device(Xs.device):
+        err = fn(Xs.data_ptr(), Zs.data_ptr(), ks.data_ptr(), Kxz.data_ptr(),
+                 None if Kzz is None else Kzz.data_ptr(), Dy, N, M, Dx,
+                 _stream(Xs))
     if err != 0:
         raise RuntimeError(f"rbf_gram kernel launch failed: cudaError {err}")
     LAUNCHES += 1
-    return out
+    return Kxz, Kzz
+
+
+def _launch(X1s, X2s, ks):
+    """One forward launch of the single Gram; returns (Dy, N, M)."""
+    return _launch_pair(X1s, X2s, ks, pair=False)[0]
+
+
+def _launch_bwd(Xs, Zs, ks, g_xz, g_zz=None):
+    """The backward kernel on the current stream: (dX, dZ, dks) for the
+    cotangent g_xz of K(Xs, Zs) and, for the pair, g_zz of K(Zs, Zs)."""
+    global BWD_LAUNCHES
+    gs = (g_xz,) if g_zz is None else (g_xz, g_zz)
+    _check(Xs, Zs, ks, *gs)
+    _, bwd = _load()
+    Dy, N, Dx = Xs.shape
+    M = Zs.shape[1]
+    if Dy == 0 or M == 0 or (N == 0 and g_zz is None):   # every entry is 0
+        return torch.zeros_like(Xs), torch.zeros_like(Zs), torch.zeros_like(ks)
+    f32 = Xs.dtype == torch.float32
+    with torch.cuda.device(Xs.device):      # the plan reads its SM count
+        n_part = (bwd.rbf_gram_bwd_scratch_f32 if f32 else
+                  bwd.rbf_gram_bwd_scratch_f64)(Dy, N, M, Dx, g_zz is not None)
+        if n_part < 0:
+            raise ValueError(f"Dx = {Dx} is too wide for the backward kernel's "
+                             "shared-memory budget")
+        dX, dZ, dks = (torch.empty_like(t) for t in (Xs, Zs, ks))
+        part = torch.empty(n_part, dtype=Xs.dtype, device=Xs.device)
+        fn = bwd.rbf_gram_bwd_f32 if f32 else bwd.rbf_gram_bwd_f64
+        err = fn(Xs.data_ptr(), Zs.data_ptr(), ks.data_ptr(), g_xz.data_ptr(),
+                 None if g_zz is None else g_zz.data_ptr(), dX.data_ptr(),
+                 dZ.data_ptr(), dks.data_ptr(), part.data_ptr(), Dy, N, M, Dx,
+                 _stream(Xs))
+    if err != 0:
+        raise RuntimeError(f"rbf_gram_bwd kernel launch failed: cudaError {err}")
+    BWD_LAUNCHES += 1
+    return dX, dZ, dks
 
 
 class RBFGram(torch.autograd.Function):
-    """Kernel forward, `rbf_gram_bwd` backward."""
+    """The single Gram: kernel forward, kernel backward (K recomputed)."""
 
     @staticmethod
     def forward(ctx, X1s, X2s, ks):
-        K = _launch(X1s, X2s, ks)
-        ctx.save_for_backward(X1s, X2s, ks, K)
-        return K
+        ctx.save_for_backward(X1s, X2s, ks)
+        return _launch(X1s, X2s, ks)
 
     @staticmethod
+    @once_differentiable
     def backward(ctx, g):
-        return rbf_gram_bwd(*ctx.saved_tensors, g)
+        return _launch_bwd(*ctx.saved_tensors, g.contiguous())
+
+
+class RBFGramPair(torch.autograd.Function):
+    """(K(X, Z), K(Z, Z)): one forward launch, one backward kernel call."""
+
+    @staticmethod
+    def forward(ctx, Xs, Zs, ks):
+        ctx.save_for_backward(Xs, Zs, ks)
+        return _launch_pair(Xs, Zs, ks, pair=True)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g_xz, g_zz):
+        return _launch_bwd(*ctx.saved_tensors, g_xz.contiguous(),
+                           g_zz.contiguous())
+
+
+def _on_cpu(*ts) -> bool:
+    return all(t.device.type == "cpu" for t in ts)
 
 
 def rbf_gram(X1s, X2s, ks):
@@ -181,7 +304,17 @@ def rbf_gram(X1s, X2s, ks):
     CUDA tensors launch the kernel (raising on anything it does not take);
     CPU tensors take the plain version.
     """
-    if X1s.device.type == "cpu" and X2s.device.type == "cpu" \
-            and ks.device.type == "cpu":
+    if _on_cpu(X1s, X2s, ks):
         return rbf_gram_reference(X1s, X2s, ks)
     return RBFGram.apply(X1s, X2s, ks)
+
+
+def rbf_gram_pair(Xs, Zs, ks):
+    """(K(Xs, Zs), K(Zs, Zs)): (Dy, N, M) and (Dy, M, M).
+
+    CUDA tensors take one launch of the kernel for both; CPU tensors take
+    `rbf_gram_pair_reference`.
+    """
+    if _on_cpu(Xs, Zs, ks):
+        return rbf_gram_pair_reference(Xs, Zs, ks)
+    return RBFGramPair.apply(Xs, Zs, ks)
