@@ -24,7 +24,15 @@ Phases, each of which fails the run (non-zero exit) on any error:
   4. gradient: the flagship's `test_log_likelihood` over the 8611 training
      rows in fp32 and its gradient into every parameter, through exactly 1
      forward launch and 1 backward kernel call, checked against the same
-     gradient on the CPU in fp32 and in fp64.
+     gradient on the CPU in fp32 and in fp64;
+  5. training: `bench.flagship_trainer` (`train.Trainer` on the 8611 power
+     training rows with `bench.py`'s model and init, full batch, Adam at lr
+     0.01): 20 steps in fp64 on the card against the CPU, 50 steps in fp32
+     on the card against the CPU in fp32 and in fp64 (q(U) through its KL
+     curve there), exactly 1 forward launch and 1 backward kernel call per
+     step, `compute_metrics` against the CPU's on the same trained
+     parameters; then steps/s of `tgp.pytorch_tpu_torch.bench` and a
+     profile of 10 steps.
 The line before the last holds the kernels' JSON record, the last line
 `{"ok": true, "device": {...}}`.  Details go to chiprun_out/chip_smoke.json.
 """
@@ -126,6 +134,11 @@ def _bound(nbytes, flops, dtype):
     t_b, t_f = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dtype]
     return 1e3 * max(t_b, t_f), ("bytes" if t_b >= t_f else "operations"), \
         nbytes, flops
+
+
+def _jsonable(x):
+    """numpy arrays and scalars in the details file."""
+    return x.tolist() if isinstance(x, (np.ndarray, np.generic)) else str(x)
 
 
 def max_err(a, b) -> float:
@@ -461,21 +474,17 @@ def serving_phase(dev):
 # amplified by K_zz's conditioning, which the CPU's own fp32-to-fp64 gaps
 # show (3.3e-2 for Z, 2.0e-2 for the lengthscales).
 GRAD_GAP_LIMITS = {"loss": 1.3e-4, "Z": 1.4e-2,
-                   "kernel.child.raw_lengthscale": 1.8e-3}
+                   "kernel/child/raw_lengthscale": 1.8e-3}
 GRAD_GAP_LIMIT_OTHER = 7.3e-4
 
 
-def _named_leaves(tree, prefix=""):
-    """(dotted name, tensor) for every leaf of a params tree, in a fixed
-    order."""
-    if isinstance(tree, dict):
-        for k in sorted(tree):
-            yield from _named_leaves(tree[k], f"{prefix}{k}.")
-    elif isinstance(tree, (list, tuple)):
-        for i, v in enumerate(tree):
-            yield from _named_leaves(v, f"{prefix}{i}.")
-    else:
-        yield prefix[:-1], tree
+def named_leaves(tree):
+    """(path, tensor) for every leaf of a params tree, its path as
+    `train.optimizers.param_paths` writes it ('kernel/child/raw_lengthscale')."""
+    from tgp.pytorch_tpu_torch.train.optimizers import param_paths
+    from tgp.pytorch_tpu_torch.weights import tree_leaves
+
+    return list(zip(tree_leaves(param_paths(tree)), tree_leaves(tree)))
 
 
 def gradient_phase(dev):
@@ -503,7 +512,7 @@ def gradient_phase(dev):
                     for k in ("X_tr", "Y_tr", "Y_std"))
         ll = PM.test_log_likelihood(spec, params, X, Y, Ys)
         ll.sum().backward()
-        return ll.detach(), {n: t.grad for n, t in _named_leaves(params)}
+        return ll.detach(), {n: t.grad for n, t in named_leaves(params)}
 
     loss_and_grads(dev, F32)                            # warm-up
     # --- the main path: counts from 0, 1 forward and 1 backward call -----
@@ -566,6 +575,192 @@ def gradient_phase(dev):
                 step_p50_ms=p50, profile=prof, loss=float(ll_gpu.sum()))
 
 
+# ---------------------------------------------------------------------------
+# phase 5: training
+# ---------------------------------------------------------------------------
+
+# The fp32 training phase's limits on the card against the CPU's fp32 run
+# after 50 steps, relative to the largest entry of the ELBO curve, of the
+# KL curve and of each parameter: 10x the gaps measured on an NVIDIA H100
+# 80GB HBM3 at 700 W.  Adam moves each entry by about lr whatever the size
+# of its gradient, so an entry of q(U) whose gradient is at the level of
+# fp32 rounding steps with the rounding's sign: after the first 5 steps the
+# card's q_L already sits 0.10 from the CPU's fp32 run, after 50 steps q_mu
+# and q_L sit 0.07 from it and 1.4-1.9 from fp64, as far as their largest
+# entries.  So the fp32 run does not hold q(U) entry by entry (the fp64 run
+# does, after 20 steps): it holds the KL curve, a function of q(U) alone
+# that the sign of such a step does not change.  The other gaps depend on
+# the trajectory (running the 50 steps as 5 + 45, with a second draw of the
+# loader's shuffle, moved flow/3/b's from 1.2e-5 to 1.2e-3); each limit
+# holds because both sides repeat their bits, and a change to the path
+# measures them anew.
+TRAIN_F32_STEPS, TRAIN_F32_EARLY = 50, 5
+TRAIN_F32_LIMITS = {
+    "curve": 6.1e-4, "kld": 6.8e-4, "Z": 9.4e-2,
+    "kernel/child/raw_lengthscale": 1.5e-3, "kernel/raw_outputscale": 5.5e-5,
+    "likelihood/log_var_noise": 4.3e-5,
+    "flow/0/a": 6.1e-3, "flow/0/b": 2.4e-5, "flow/1/a": 5.5e-5,
+    "flow/1/b": 2.4e-2, "flow/2/a": 6.2e-3, "flow/2/b": 3.1e-5,
+    "flow/3/a": 4.7e-5, "flow/3/b": 1.2e-2}
+# logL and rmse of compute_metrics on the card against the CPU's fp32 run,
+# on the same trained parameters, relative (measured: at most 4.0e-5)
+METRICS_F32_LIMIT = 4e-4
+
+
+def training_phase(dev):
+    """`Trainer.train` on the flagship (`bench.flagship_trainer`: bench.py's
+    spec and init over the 8611 power training rows, full batch): the card's
+    trajectory against the CPU's in fp64 and fp32, 1 forward launch and 1
+    backward call per step, the trained model's metrics, then the bench
+    loop and a profile."""
+    from tgp.pytorch_tpu_torch import bench, config as cfg
+    from tgp.pytorch_tpu_torch.data import return_dataset
+    from tgp.pytorch_tpu_torch.ops import rbf_gram as R
+    from tgp.pytorch_tpu_torch.train import Trainer
+
+    def values(tr):
+        """The ELBO and KL curves so far and the parameters (fp64 on the
+        host), by name."""
+        out = {n: torch.as_tensor(np.asarray(c, np.float64))
+               for n, c in (("curve", tr.loss_curve), ("kld", tr.kld_curve))}
+        out.update((n, t.detach().double().cpu())
+                   for n, t in named_leaves(tr.params))
+        return out
+
+    def train(device, precision, chunks):
+        """A fresh `bench.flagship_trainer` (fresh loaders, so the same
+        shuffle) trained for sum(chunks) steps, one train() call a chunk;
+        returns it, its `values` after each chunk and the kernel counts of
+        the run."""
+        cfg.set_precision(precision)
+        try:
+            tr = bench.flagship_trainer(device)
+            snaps = []
+            # --- the main path: counts from 0, 1 forward + 1 backward a step
+            R.LAUNCHES = R.BWD_LAUNCHES = 0
+            for n in chunks:
+                tr.train(n, bench.LR, "adam", verbose_each=0)
+                snaps.append(values(tr))
+            counts = (R.LAUNCHES, R.BWD_LAUNCHES)
+            # ------------------------------------------------------------------
+        finally:
+            cfg.set_precision("fp32")
+        return tr, snaps, counts
+
+    def gaps(runs, pairs, snap=-1):
+        """{name: {pair: gap}} over the curves and every parameter after
+        chunk `snap`, relative to the largest entry of the CPU's fp64 run."""
+        ref = runs["cpu64"][1][snap]
+        return {n: {k: float((runs[a][1][snap][n] - runs[b][1][snap][n])
+                             .abs().max() / (ref[n].abs().max() or 1.0))
+                    for k, (a, b) in pairs.items()} for n in ref}
+
+    result, checks = {}, []     # every check is made after the phase's log
+    # 1. fp64, the card against the CPU: the whole path held tightly
+    runs = {"gpu64": train(dev, "fp64", [20]), "cpu64": train("cpu", "fp64", [20])}
+    g64 = gaps(runs, {"gpu64_vs_cpu64": ("gpu64", "cpu64")})
+    checks.append((runs["gpu64"][2] == (20, 20),
+                   f"fp64 training counts {runs['gpu64'][2]}"))
+    curves = [runs[k][1][-1]["curve"] for k in ("gpu64", "cpu64")]
+    curve_gap = (curves[0] - curves[1]).abs() / curves[1].abs().max()
+    log("training fp64 curve gap by step: " + ", ".join(
+        f"{i}: {float(curve_gap[i]):.2e}" for i in (0, 1, 2, 5, 10, 19)))
+    checks.append((float(curve_gap[0]) <= bench.TRAIN_F64_STEP0_LIMIT,
+                   f"fp64 ELBO at the initial parameters {float(curve_gap[0])}"))
+    for n, g in g64.items():
+        log(f"training fp64 {n:30s} gpu64 vs cpu64 {g['gpu64_vs_cpu64']:.3e}")
+        checks.append((g["gpu64_vs_cpu64"] <= bench.TRAIN_F64_LIMITS[n],
+                       f"fp64 training {n} {g}"))
+    result.update(fp64_gaps=g64, fp64_curve_gap_step0=float(curve_gap[0]))
+
+    # 2. fp32: the card against the CPU in fp32, and each against fp64,
+    # logged after TRAIN_F32_EARLY steps and held after TRAIN_F32_STEPS
+    steps, early = TRAIN_F32_STEPS, TRAIN_F32_EARLY
+    chunks = [early, steps - early]
+    runs = {"gpu32": train(dev, "fp32", chunks),
+            "cpu32": train("cpu", "fp32", chunks),
+            "cpu64": train("cpu", "fp64", chunks)}
+    launches, bwd_launches = runs["gpu32"][2]
+    checks.append((launches == steps,
+                   f"training: {launches} forward launches in {steps} steps"))
+    checks.append((bwd_launches == steps,
+                   f"training: {bwd_launches} backward calls in {steps} steps"))
+    pairs = {"gpu32_vs_cpu32": ("gpu32", "cpu32"),
+             "gpu32_vs_cpu64": ("gpu32", "cpu64"),
+             "cpu32_vs_cpu64": ("cpu32", "cpu64")}
+    g32_early, g32 = gaps(runs, pairs, snap=0), gaps(runs, pairs)
+    for when, gs in ((early, g32_early), (steps, g32)):
+        for n, g in gs.items():
+            log(f"training fp32 {when:2d} steps {n:30s} gpu32 vs cpu32 "
+                f"{g['gpu32_vs_cpu32']:.3e}  gpu32 vs cpu64 "
+                f"{g['gpu32_vs_cpu64']:.3e}  cpu32 vs cpu64 "
+                f"{g['cpu32_vs_cpu64']:.3e}")
+    for n, lim in TRAIN_F32_LIMITS.items():       # every name but q(U)
+        g = g32[n]
+        checks.append((g["gpu32_vs_cpu32"] <= lim,
+                       f"fp32 training {n} card vs CPU {g}"))
+        checks.append((g["gpu32_vs_cpu64"] <= max(4 * g["cpu32_vs_cpu64"], 1e-5),
+                       f"fp32 training {n} card vs fp64 {g}"))
+    result.update(fp32_early_gaps=g32_early, fp32_gaps=g32, launches=launches,
+                  bwd_launches=bwd_launches, steps=steps,
+                  elbo=float(runs["gpu32"][1][-1]["curve"][-1]))
+
+    # 3. the trained model's metrics on the card and on the CPU (fp32, the
+    # same trained parameters); coverage draws other samples on each
+    tr_gpu = runs["gpu32"][0]
+    m_gpu = tr_gpu.compute_metrics()
+    tr_cpu = Trainer(tr_gpu.spec, tr_gpu.params,
+                     return_dataset("power", 10000, seed=1)[0], tr_gpu.Y_std,
+                     device="cpu")
+    m_cpu = tr_cpu.compute_metrics()
+    result["metrics"] = {"gpu32": m_gpu, "cpu32": m_cpu}
+    for split in ("train", "test"):
+        n_rows = len(tr_gpu.test_loader.dataset if split == "test"
+                     else tr_gpu.train_loader.dataset)
+        for k in ("logL", "rmse", "coverage"):
+            a, b = float(m_gpu[split][k][0]), float(m_cpu[split][k][0])
+            checks.append((np.isfinite(a), f"{split} {k} finite"))
+            lim = (3 * np.sqrt(b * (1 - b) / n_rows) if k == "coverage"
+                   else METRICS_F32_LIMIT * abs(b))
+            log(f"training metrics {split:5s} {k:8s} card {a:.6f} CPU {b:.6f}"
+                f" gap {abs(a - b):.3e} (limit {lim:.3e})")
+            checks.append((abs(a - b) <= lim, f"{split} {k}: card {a}, CPU {b}"))
+
+    # 4. throughput: the bench loop, then a profile of 10 steps
+    t0 = time.perf_counter()
+    tr = bench.flagship_trainer(dev)
+    steps_per_s = bench.bench(tr)
+    log(f"training bench: {steps_per_s:.2f} steps/s (best of {bench.WINDOWS} "
+        f"windows of 2 x {bench.CHUNK} full-batch steps, "
+        f"{time.perf_counter() - t0:.1f} s in all)")
+
+    def ten_steps():
+        tr.train(10, bench.LR, "adam", verbose_each=0)
+
+    times = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        ten_steps()
+        times.append((time.perf_counter() - t0) / 10)
+    step_ms = 1e3 * float(np.median(times))
+    prof = profile_device(ten_steps)
+    per_step = {k: prof[k] / 10 for k in ("device_ops", "device_busy_ms",
+                                          "gram_ms", "gram_bwd_ms")}
+    log(f"training step {step_ms:.3f} ms (median of 5 x 10 steps); "
+        f"{per_step['device_ops']:.1f} device ops, busy "
+        f"{per_step['device_busy_ms']:.3f} ms = "
+        f"{per_step['device_busy_ms'] / step_ms:.1%} of a step; Gram forward "
+        f"{per_step['gram_ms'] * 1e3:.2f} us, backward "
+        f"{per_step['gram_bwd_ms'] * 1e3:.2f} us a step")
+    for name, ms in prof["top_ms"]:
+        log(f"    {ms * 1e3 / 10:9.2f} us a step  {name}")
+    result.update(steps_per_s=steps_per_s, step_ms=step_ms,
+                  profile_per_step=per_step, profile_top_ms=prof["top_ms"])
+    for cond, msg in checks:
+        check(cond, msg)
+    return result
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -591,6 +786,7 @@ def main() -> int:
     rows, big = kernel_phase(dev)
     serving = serving_phase(dev)
     grad = gradient_phase(dev)
+    training = training_phase(dev)
 
     fp32_rows = [r for r in rows if "fp32" in r["shape"]]
     train = next(r for r in rows if r["shape"] == "pair 8611+100 fp32")
@@ -598,14 +794,16 @@ def main() -> int:
     record = {"kernels": [
         dict(name="rbf_gram", source="tgp/pytorch_tpu_torch/csrc/rbf_gram.cu",
              replaces="tgp/pytorch_tpu/ops/pallas/rbf_gram.py:85",
-             launches=serving["launches"] + grad["launches"],
+             launches=(serving["launches"] + grad["launches"]
+                       + training["launches"]),
              max_abs_err=max(r["max_abs_err"] for r in fp32_rows + [big]),
              ms=train["ms"], plain_ms=train["plain_ms"],
              bound_ms=train["bound_ms"], bound_by=train["bound_by"], **common),
         dict(name="rbf_gram_bwd",
              source="tgp/pytorch_tpu_torch/csrc/rbf_gram_bwd.cu",
              replaces="tgp/pytorch_tpu/ops/pallas/rbf_gram.py:114",
-             launches=serving["bwd_launches"] + grad["bwd_launches"],
+             launches=(serving["bwd_launches"] + grad["bwd_launches"]
+                       + training["bwd_launches"]),
              max_abs_err=max(r["bwd_max_abs_err"] for r in fp32_rows),
              ms=train["bwd_ms"], plain_ms=train["bwd_plain_ms"],
              bound_ms=train["bwd_bound_ms"], bound_by=train["bwd_bound_by"],
@@ -616,7 +814,8 @@ def main() -> int:
     (out_dir / "chip_smoke.json").write_text(json.dumps(dict(
         device=name, nvidia_smi=smi, torch=torch.__version__,
         cuda=torch.version.cuda, build_s=build_s, kernel_rows=rows,
-        big_gram=big, serving=serving, gradient=grad, record=record), indent=1))
+        big_gram=big, serving=serving, gradient=grad, training=training,
+        record=record), indent=1, default=_jsonable))
 
     log(smi)
     log(json.dumps(record))

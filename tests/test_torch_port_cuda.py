@@ -1,4 +1,5 @@
-"""The port's CUDA Gram kernels on the card (marker `cuda`; skips without one).
+"""The port's CUDA Gram kernels, and the paths through them, on the card
+(marker `cuda`; skips without one).
 
 This file imports no JAX, so it runs on a machine with a card and PyTorch
 alone (the repo's conftest imports JAX, hence `--noconftest`):
@@ -16,9 +17,10 @@ import numpy as np
 import pytest
 import torch
 
-from tgp.pytorch_tpu_torch import config as pcfg, weights
+from tgp.pytorch_tpu_torch import bench, config as pcfg, weights
 from tgp.pytorch_tpu_torch.ops import rbf_gram as R
 from tgp.pytorch_tpu_torch.serve import Predictor
+from tgp.pytorch_tpu_torch.train.optimizers import param_paths
 
 pytestmark = pytest.mark.cuda
 
@@ -184,3 +186,47 @@ def test_predictor_goes_through_the_kernel_once_per_request(dev):
     assert R.BWD_LAUNCHES == bwd_before
     assert np.isfinite(out["mean"]).all() and np.isfinite(lp).all()
     assert (out["lower"] <= out["upper"]).all()
+
+
+def _train(device, steps, precision="fp32"):
+    """`bench.flagship_trainer` trained for `steps` full-batch Adam steps at
+    `bench.LR` in `precision`; returns the Trainer."""
+    pcfg.set_precision(precision)
+    try:
+        tr = bench.flagship_trainer(device)
+        tr.train(steps, bench.LR, "adam", verbose_each=0)
+    finally:
+        pcfg.set_precision("fp32")
+    return tr
+
+
+def test_trainer_step_goes_through_both_kernels_once(dev):
+    before, bwd_before = R.LAUNCHES, R.BWD_LAUNCHES
+    tr = _train(dev, 5)
+    assert R.LAUNCHES == before + 5
+    assert R.BWD_LAUNCHES == bwd_before + 5
+    assert len(tr.loss_curve) == 5 and np.isfinite(tr.loss_curve).all()
+    assert tr.params["Z"].device == dev
+
+
+def test_trainer_fp64_trajectory_equals_the_cpu_one(dev):
+    # the limits that chip_smoke.py holds the card's fp64 training to
+    gpu, cpu = _train(dev, 20, "fp64"), _train("cpu", 20, "fp64")
+    a, b = np.asarray(gpu.loss_curve), np.asarray(cpu.loss_curve)
+    assert abs(a[0] - b[0]) <= bench.TRAIN_F64_STEP0_LIMIT * np.abs(b).max()
+    names = ["curve", "kld"] + weights.tree_leaves(param_paths(gpu.params))
+    pairs = [(a, b), (np.asarray(gpu.kld_curve), np.asarray(cpu.kld_curve))] + [
+        (p.detach().cpu().numpy(), q.detach().numpy())
+        for p, q in zip(weights.tree_leaves(gpu.params),
+                        weights.tree_leaves(cpu.params))]
+    for n, (a, b) in zip(names, pairs):
+        lim = bench.TRAIN_F64_LIMITS[n]
+        assert np.abs(a - b).max() <= lim * np.abs(b).max(), n
+
+
+def test_trainer_on_the_card_is_bitwise_repeatable(dev):
+    # the backward kernel sums in a fixed order and Adam is elementwise
+    a, b = _train(dev, 20), _train(dev, 20)
+    assert np.array_equal(np.asarray(a.loss_curve), np.asarray(b.loss_curve))
+    for p, q in zip(weights.tree_leaves(a.params), weights.tree_leaves(b.params)):
+        assert torch.equal(p, q)

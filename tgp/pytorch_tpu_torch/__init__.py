@@ -6,10 +6,11 @@ PyTorch idiom inside: plain functions on tensors, dict parameter trees, an
 explicit `device` and explicit `torch.Generator`s.  It imports neither JAX
 nor anything of the JAX package.
 
-Ported so far: the serving path of the flagship TGP (`serve.Predictor` over
-a SAL flow, a scale-RBF ARD kernel and whitened q(U)), with the fused ARD-RBF
-Gram as a hand-written CUDA kernel (`ops/rbf_gram.py`, `csrc/rbf_gram.cu`).
-Kinds not yet ported raise NotImplementedError naming their ROADMAP item.
+Ported so far: the serving and training paths of the flagship TGP
+(`serve.Predictor` and `train.Trainer` over a SAL flow, a scale-RBF ARD
+kernel and whitened q(U)), with the fused ARD-RBF Gram and its VJP as
+hand-written CUDA kernels (`ops/rbf_gram.py`, `csrc/`).  Kinds not yet
+ported raise NotImplementedError naming their ROADMAP item.
 """
 
 from . import config

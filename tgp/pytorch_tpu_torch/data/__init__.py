@@ -1,0 +1,2 @@
+from .batching import ArrayDataset, DataLoader
+from .registry import return_dataset

@@ -1,0 +1,50 @@
+"""Dataset registry: name -> data loaders + data_config, the UCI regression
+part of the JAX package's `data/registry.py::return_dataset`.
+
+The classification tables and the large corpora wait for ROADMAP Queue 1
+item 20.
+"""
+
+from __future__ import annotations
+
+from .batching import ArrayDataset, DataLoader
+from .uci import UCI_TABLE, load_uci_split
+
+
+def return_dataset(name: str, batch_size: int, use_validation=None,
+                   seed: int = 1, options: dict | None = None):
+    """Build [train(, valid), test] DataLoaders and a data_config dict
+    (X_tr, Y_tr, N_tr, Dx, Dy, Y_std, Y_mean, task) for a named dataset.
+
+    options keys honoured: 'shuffle_train' (default True), 'generator_seed'
+    for the training loader's generator (default 0), 'normalize_y'.
+    """
+    if name not in UCI_TABLE:
+        raise NotImplementedError(
+            f"dataset {name!r} is not ported yet: the port reads the UCI "
+            "regression tables only (ROADMAP Queue 1 item 20)")
+    options = dict(options or {})
+    shuffle_train = bool(options.get("shuffle_train", True))
+    gen_seed = options.get("generator_seed", 0)
+    split = load_uci_split(name, seed, use_validation,
+                           normalize_y=options.get("normalize_y", True))
+
+    loaders = [DataLoader(ArrayDataset(split["X_tr"], split["Y_tr"]),
+                          batch_size, shuffle=shuffle_train, seed=gen_seed)]
+    if split["X_va"] is not None:
+        loaders.append(DataLoader(ArrayDataset(split["X_va"], split["Y_va"]),
+                                  batch_size, shuffle=False))
+    loaders.append(DataLoader(ArrayDataset(split["X_te"], split["Y_te"]),
+                              batch_size, shuffle=False))
+
+    data_config = {
+        "X_tr": split["X_tr"],
+        "Y_tr": split["Y_tr"],
+        "N_tr": split["X_tr"].shape[0],
+        "Dx": split["X_tr"].shape[1],
+        "Dy": split["Y_tr"].shape[1],
+        "Y_std": split["Y_std"],
+        "Y_mean": split["Y_mean"],
+        "task": "regression",
+    }
+    return loaders, data_config

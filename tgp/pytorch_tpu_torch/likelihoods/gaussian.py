@@ -1,14 +1,15 @@
-"""Gaussian likelihoods, linear and flow-warped means: the predictive subset
-of the JAX package's `likelihoods/gaussian.py`.
+"""Gaussian likelihoods, linear and flow-warped means: the expected
+log-likelihoods and predictive moments of the JAX package's
+`likelihoods/gaussian.py`.
 
 Parameters are {'log_var_noise': (Dy or 1, 1)} with the 'exp' positive
-transform.  The expected log-likelihoods used by training wait for ROADMAP
-Queue 1 item 9; the other likelihood kinds for item 16.
+transform.  The other likelihood kinds wait for ROADMAP Queue 1 item 16.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import numpy as np
 import torch
@@ -56,6 +57,37 @@ def noise_variance(spec: LikelihoodSpec, params, Dy: int | None = None):
     """(Dy, 1) positive noise variance (expanded if shared)."""
     Dy = Dy or spec.out_dim
     return torch.exp(params["log_var_noise"]).expand(Dy, 1)
+
+
+def _log_normal(y, mean, var):
+    return -0.5 * (torch.log(2.0 * math.pi * var) + torch.square(y - mean) / var)
+
+
+def gaussian_ell(spec: LikelihoodSpec, params, Y, mu, var):
+    """Closed-form expected log-likelihood:
+        E_q(f)[log p(y|f)] = log N(y | mu, C_y) - 0.5 tr(C_y^{-1} C_f).
+
+    Y, mu and var are (Dy, MB); returns (Dy,).
+    """
+    C_y = noise_variance(spec, params)                    # (Dy, 1)
+    log_p = torch.sum(_log_normal(Y, mu, C_y), dim=-1)
+    trace = -0.5 * torch.sum(var / C_y, dim=-1)
+    return log_p + trace
+
+
+def gaussian_flow_ell(spec: LikelihoodSpec, params, Y, mu, var, warp):
+    """Quadrature expected log-likelihood through a flow:
+        E_q(f0)[log p(y | G(f0))]
+          ~= 1/sqrt(pi) sum_i w_i log N(y | G(sqrt(2) s x_i + mu), C_y).
+
+    Y, mu and var are (Dy, MB); `warp` maps the shifted nodes (S, Dy, MB) to
+    warped values of the same shape.  Returns (Dy,).
+    """
+    gh = GaussHermite(spec.quad_points)
+    C_y = noise_variance(spec, params)                    # (Dy, 1)
+    fk = warp(gh.shifted_locations(mu, var))              # (S, Dy, MB)
+    log_p = _log_normal(Y[None], fk, C_y.reshape(1, -1, 1))
+    return torch.sum(gh.reduce(log_p), dim=-1)
 
 
 def gaussian_moments(spec: LikelihoodSpec, params, mu, var):

@@ -1,5 +1,5 @@
-"""Transformed Gaussian Process (TGP): the serving subset of the JAX
-package's `models/tgp.py`.
+"""Transformed Gaussian Process (TGP): the serving and training subset of the
+JAX package's `models/tgp.py`.
 
 Everything is a plain function of (spec, params): `TGPSpec` is static,
 params is a dict tree of tensors with the JAX package's layout (inducing
@@ -13,10 +13,10 @@ Whitened path (the one ported):
 with L = chol(K_zz + jitter I), S = tril(Lq) tril(Lq)^T, and only the
 diagonal of the covariance materialised.
 
-Not ported yet: the ELBO and KL terms (ROADMAP Queue 1 item 9), whiten=False,
-full covariances, fast_solves, solve_precision levers and per-output flow
-architectures (item 18), input-dependent flows and fully-Bayesian
-prediction (item 13).
+Not ported yet: whiten=False, full covariances, fast_solves, solve_precision
+levers and per-output flow architectures (item 18), input-dependent flows,
+their KL terms and fully-Bayesian prediction (item 13), and `spec.remat`
+(item 21).
 """
 
 from __future__ import annotations
@@ -31,7 +31,8 @@ import torch
 from .. import config as cfg
 from ..ops import kernels as kernels_mod
 from ..ops.kernels import KernelSpec
-from ..ops.linalg import safe_cholesky, tril_solve, triu_solve, tril_mask
+from ..ops.linalg import (kl_whitened, safe_cholesky, tril_solve, triu_solve,
+                          tril_mask)
 from ..ops.quadrature import GaussHermite
 from ..flows.core import (
     FlowStep,
@@ -46,6 +47,8 @@ from ..likelihoods.gaussian import (
     check_likelihood,
     init_likelihood_params,
     noise_variance,
+    gaussian_ell,
+    gaussian_flow_ell,
     gaussian_moments,
     gaussian_flow_moments,
 )
@@ -256,6 +259,15 @@ def marginal_qf(spec: TGPSpec, params, X, *, diagonal: bool = True):
     return mu, torch.clamp_min(cov, spec.min_var)
 
 
+def kld_qu(spec: TGPSpec, params):
+    """KL(q(U) || p(U)) per output, shape (Dy,): the whitened branch
+    (`check_spec` refuses whiten=False).  A shared q(U) is counted once per
+    output, as in the JAX package."""
+    check_spec(spec)
+    Dy = spec.Dy
+    return kl_whitened(_expand(params["q_mu"], Dy), _expand(params["q_L"], Dy))
+
+
 # -- flow warping (batched over outputs) ------------------------------------
 
 def _warp_clip(f):
@@ -282,6 +294,49 @@ def _make_warp(spec: TGPSpec, params):
         return _warp_clip(flow_forward(spec.flow, fp, f))
 
     return warp
+
+
+def flows_kld(spec: TGPSpec, params):
+    """Sum of the flows' KL terms: zero for the point-estimate flows, the
+    only kind `check_spec` admits (VI hypernets wait for item 13)."""
+    check_spec(spec)
+    ref = params["q_mu"]
+    return torch.zeros((), dtype=ref.dtype, device=ref.device)
+
+
+# ===========================================================================
+# ELBO
+# ===========================================================================
+
+def elbo(spec: TGPSpec, params, X, Y):
+    """Evidence lower bound for one minibatch:
+        ELBO = N/MB * ELL - KL(q(U)||p(U)) - KL_flows.
+
+    X is (MB, Dx) and Y (MB, Dy).  One `marginal_qf` call, so one launch of
+    the Gram kernel when the tensors lie on the card.  The ported flows are
+    point estimates, which draw no random numbers, so no generator enters.
+    Returns (elbo, ell, kld), all 0-d tensors (maximise the elbo).
+    """
+    if spec.remat:
+        raise NotImplementedError("spec.remat (recomputation of marginal_qf and "
+                                  "the warp) is not ported yet (ROADMAP Queue 1 "
+                                  "item 21)")
+    MB = X.shape[0]
+    X3 = _ensure_3d(spec, X)
+    mu, var = marginal_qf(spec, params, X3)
+    kl = torch.sum(kld_qu(spec, params))
+    kl_flow = flows_kld(spec, params)
+
+    lik = spec.likelihood
+    lp = params["likelihood"]
+    if lik.kind == "gaussian":
+        ell = torch.sum(gaussian_ell(lik, lp, Y.T, mu, var))
+    else:                               # gaussian_flow (check_spec's filter)
+        ell = torch.sum(gaussian_flow_ell(lik, lp, Y.T, mu, var,
+                                          _make_warp(spec, params)))
+    ell = spec.N / MB * ell
+    total_kl = kl + kl_flow
+    return ell - total_kl, ell, total_kl
 
 
 # ===========================================================================

@@ -2,7 +2,8 @@
 
 Cholesky factorisations and triangular solves are `torch.linalg` (cuSOLVER
 and cuBLAS on the card, LAPACK on the CPU), as the JAX package left them to
-XLA.  All functions take arbitrary leading batch dimensions.
+XLA.  All functions take arbitrary leading batch dimensions.  `kl_gaussian`
+(the whiten=False KL) waits for ROADMAP Queue 1 item 18.
 """
 
 from __future__ import annotations
@@ -87,3 +88,22 @@ def cholesky_solve(L, B):
 def tril_mask(L):
     """Zero the strictly-upper triangle."""
     return torch.tril(L)
+
+
+def kl_whitened(m, L_raw):
+    """KL( N(m, S) || N(0, I) ) with S = tril(L_raw) tril(L_raw)^T:
+        0.5 * ( -log|S| + m^T m + tr(S) - M ).
+
+    m is (..., M), L_raw (..., M, M) with its lower triangle used; returns
+    (...,).  The raw scale's diagonal is unconstrained, so a floor inside the
+    log (1e-30 in fp64, 1e-12 otherwise) keeps a zero crossing from making
+    the log-determinant -inf and its gradient 1/0.
+    """
+    L = tril_mask(L_raw)
+    M = m.shape[-1]
+    eps = 1e-30 if L.dtype == torch.float64 else 1e-12
+    diag = torch.diagonal(L, dim1=-2, dim2=-1)
+    log_det = torch.sum(torch.log(torch.square(diag) + eps), dim=-1)
+    dot_mean = torch.sum(torch.square(m), dim=-1)
+    trace = torch.sum(torch.square(L), dim=(-2, -1))      # tr(L L^T)
+    return 0.5 * (-log_det + dot_mean + trace - float(M))

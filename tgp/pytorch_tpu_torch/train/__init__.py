@@ -1,0 +1,3 @@
+from .optimizers import make_optimizer, build_grouped_optimizer
+from .trainer import Trainer
+from . import metrics

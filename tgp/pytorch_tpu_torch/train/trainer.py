@@ -1,0 +1,373 @@
+"""Training loop and evaluation metrics: the torch counterpart of the JAX
+package's `train/trainer.py`.
+
+  * A step is eager: the ELBO (one launch of the Gram kernel), its gradient
+    by autograd (one call of the Gram's backward kernel), then the grouped
+    optimizer applied in place.  Nothing in a step reads a value back to the
+    host: the ELBO, ELL and KL of each step stay on the device and a chunk
+    of steps fetches them with one copy.
+  * Full batch (the training loader yields one batch): the batch goes to the
+    device once per phase, and steps run in chunks of
+    min(phase epochs, 2000, validate_each), the JAX package's scan chunks.
+  * Minibatch: the dataset (up to 512 MB) goes to the device once; each
+    epoch draws the loader's permutation, runs the full batches, then the
+    remainder batch.  `loss_curve` gets one entry per epoch, the last full
+    batch's.
+  * Multi-phase schedules (percentages of the epochs, each with [lr(, wd),
+    name] groups); the Adam family's moments carry across phases and train()
+    calls while the kind is unchanged.
+
+Not ported yet: natural gradients and L-BFGS (ROADMAP Queue 1 item 19),
+meshes, checkpoints and evaluation on another device (item 20), the
+plateau guard (it acts only on the solve levers of item 18), `track_fn` and
+the host minibatch loop for datasets over 512 MB (item 21).
+"""
+
+from __future__ import annotations
+
+import time
+
+import numpy as np
+import torch
+
+from .. import config as cfg
+from ..models import tgp as tgp_mod
+from ..models.tgp import TGPSpec
+from ..weights import tree_leaves, tree_map
+from . import group_adam as GA
+from .metrics import inside_95
+from .optimizers import build_grouped_optimizer, param_paths
+
+
+def frozen_param_labels(spec: TGPSpec, params):
+    """Bool tree marking leaves excluded from optimisation: the identity-mean
+    projection W, hypernet batch-norm statistics, and the anchor scalars
+    (a, b, c, d) of a step that owns a hypernet."""
+    paths = param_paths(params)
+    hyper_prefixes = {p.split("/net_")[0] for p in tree_leaves(paths)
+                      if "/net_" in p}
+
+    def is_frozen(path):
+        if path.endswith("mean/W"):
+            return True
+        if path.endswith("/bn/mean") or path.endswith("/bn/var"):
+            return True
+        return any(path.startswith(pre + "/")
+                   and path[len(pre) + 1:] in ("a", "b", "c", "d")
+                   for pre in hyper_prefixes)
+
+    return tree_map(is_frozen, paths)
+
+
+def _global_norm(grads):
+    return torch.sqrt(sum(torch.sum(torch.square(g)) for g in grads))
+
+
+class Trainer:
+    """Owns the optimisation loop for one TGP model.
+
+    Args:
+      spec, params: the model; params (the port's tree of tensors) are copied
+        to `device` in the configured precision as leaves that require grad.
+      data_loaders: [train(, valid), test] (`data.DataLoader`s).
+      Y_std: (Dy,) de-normalisation of the regressed variable.
+      S_test: predictive samples per row for the coverage metric.
+      validate_each: epochs between evaluations during training.
+      seed: seed of the `torch.Generator` that the evaluation samples draw
+        from.
+      device: where training runs; None means the card (raises without one).
+    """
+
+    #: datasets up to this many bytes are kept on the device for minibatch
+    #: training
+    DEVICE_RESIDENT_BYTES = 1 << 29
+
+    def __init__(self, spec: TGPSpec, params, data_loaders, Y_std,
+                 S_test: int = 100, validate_each: int = 10 ** 18,
+                 seed: int = 0, track_fn=None, mesh=None, device=None):
+        if mesh is not None:
+            raise NotImplementedError("training on a mesh is not ported yet "
+                                      "(ROADMAP Queue 1 item 20)")
+        if track_fn is not None:
+            raise NotImplementedError("track_fn is not ported yet (ROADMAP "
+                                      "Queue 1 item 21)")
+        tgp_mod.check_spec(spec)
+        self.spec = spec
+        self.device = cfg.resolve_device(device)
+        self.dtype = cfg.default_dtype()
+        self.params = tree_map(
+            lambda t: t.detach().to(self.device, self.dtype, copy=True)
+            .requires_grad_(True), params)
+        self.train_loader = data_loaders[0]
+        self.valid_loader = data_loaders[1] if len(data_loaders) == 3 else None
+        self.test_loader = data_loaders[-1] if len(data_loaders) >= 2 else None
+        self.Y_std = np.asarray(Y_std, dtype=np.float64).reshape(-1)
+        self._Y_std_dev = self._put(self.Y_std)
+        self.S_test = S_test
+        self.validate_each = validate_each
+        self._gen = torch.Generator(device=self.device)
+        self._gen.manual_seed(int(seed))
+        self.loss_curve = []   # ELBO per step (full batch) or per epoch
+        self.ell_curve = []
+        self.kld_curve = []
+        #: MC-dropout prediction, which waits for ROADMAP Queue 1 item 13
+        self.fully_bayesian = False
+        #: evaluation on another device, which waits for item 20
+        self.eval_device = None
+        #: raise FloatingPointError, naming the non-finite parameters, when
+        #: the ELBO goes non-finite (checked per chunk, or every 50 epochs)
+        self.nan_guard = True
+        #: the early-stall detector, which waits for item 18
+        self.plateau_guard = None
+        self._opt_state_carry = None
+        self._opt_state_kind = None
+
+    # ------------------------------------------------------------------
+    def _put(self, a):
+        return torch.as_tensor(np.asarray(a), dtype=self.dtype).to(self.device)
+
+    def _check_finite(self, where: str):
+        if not self.nan_guard or not self.loss_curve:
+            return
+        if np.isfinite(float(self.loss_curve[-1])):
+            return
+        bad = [path for path, leaf in zip(tree_leaves(param_paths(self.params)),
+                                          tree_leaves(self.params))
+               if not bool(torch.isfinite(leaf).all())]
+        raise FloatingPointError(
+            f"non-finite ELBO at {where}; non-finite parameters: {bad or 'none'}"
+            f" — consider fp64 precision, a larger Cholesky jitter, or a "
+            f"smaller learning rate")
+
+    def _step(self, step, X, Y):
+        """One optimisation step; returns (elbo, ell, kld) on the device."""
+        leaves = tree_leaves(self.params)
+        e, ell, kld = tgp_mod.elbo(self.spec, self.params, X, Y)
+        grads = torch.autograd.grad(-e, leaves, allow_unused=True,
+                                    materialize_grads=True)
+        step(grads)
+        return torch.stack([e.detach(), ell.detach(), kld.detach()])
+
+    def _record(self, rows):
+        """Append the (elbo, ell, kld) rows of a chunk with one copy."""
+        curves = torch.stack(rows).cpu().numpy()
+        self.loss_curve.extend(curves[:, 0])
+        self.ell_curve.extend(curves[:, 1])
+        self.kld_curve.extend(curves[:, 2])
+
+    # ------------------------------------------------------------------
+    def train(self, epochs: int, lr_ALL: float, opt: str = "adam",
+              optimisation_schedule=None, verbose_each: int = 100,
+              clip_norm: float | None = None,
+              natgrad_gamma: float | None = None,
+              natgrad_warmup: int | None = None):
+        """Run the optimisation loop.
+
+        optimisation_schedule = (percentages, specifications): percentages of
+        `epochs` per phase; each phase's specification is a list of
+        [lr(, wd), name] entries (None = all parameters at lr_ALL).
+        clip_norm scales the gradients by min(1, clip_norm / (|g| + 1e-12))
+        (the global norm over every leaf) before the Adam family's step; for
+        'sgd' it is optax's clip_by_global_norm.
+        """
+        if natgrad_gamma is not None or natgrad_warmup is not None:
+            raise NotImplementedError("natural-gradient steps (natgrad_gamma, "
+                                      "natgrad_warmup) are not ported yet "
+                                      "(ROADMAP Queue 1 item 19)")
+        if opt == "lbfgs":
+            raise NotImplementedError("lbfgs is not ported yet (ROADMAP Queue 1 "
+                                      "item 19)")
+        if self.plateau_guard:
+            raise NotImplementedError(
+                "plateau_guard acts only on fast_solves and solve_precision, "
+                "which are not ported yet (ROADMAP Queue 1 item 18)")
+        if optimisation_schedule is None:
+            optimisation_schedule = ([1.0], [None])
+        percentages, specifications = optimisation_schedule
+        if abs(sum(percentages) - 1.0) > 1e-9:
+            raise ValueError(f"schedule percentages must sum to 1, got {sum(percentages)}")
+
+        frozen = frozen_param_labels(self.spec, self.params)
+        ep_done = 0
+        ve = self.validate_each if self.validate_each else 10 ** 18
+        full_batch = len(self.train_loader) == 1
+        for per, specs in zip(percentages, specifications):
+            phase_epochs = int(epochs * per)
+            step = self._build_phase_optimizer(specs, lr_ALL, opt, frozen,
+                                               clip_norm)
+            run = self._run_full_batch if full_batch else self._run_minibatch
+            ep_done = run(step, phase_epochs, epochs, ep_done, ve, verbose_each)
+        return self
+
+    def _run_full_batch(self, step, phase_epochs, epochs, ep_done, ve,
+                        verbose_each):
+        X, Y = next(iter(self.train_loader))
+        Xd, Yd = self._put(X), self._put(Y)
+        # chunk boundaries align to validate_each, as evaluation stops a chunk
+        chunk = int(min(phase_epochs, 2000, ve))
+        done = 0
+        t0 = time.time()
+        while done < phase_epochs:
+            n = min(chunk, phase_epochs - done,
+                    ve - (ep_done % ve) if ve <= epochs else chunk)
+            self._record([self._step(step, Xd, Yd) for _ in range(n)])
+            prev_ep = ep_done
+            done += n
+            ep_done += n
+            self._check_finite(f"epoch {ep_done}")
+            if verbose_each:
+                base = len(self.loss_curve) - ep_done
+                m = (prev_ep // verbose_each + 1) * verbose_each
+                while m <= ep_done:
+                    print(f"| epoch {m}/{epochs}  ELBO "
+                          f"{float(self.loss_curve[base + m - 1]):.4f} "
+                          f"({(time.time() - t0) / done * 1e3:.2f}ms/ep)")
+                    m += verbose_each
+            if ve <= epochs and ep_done % ve == 0:
+                print(f"|   eval @ {ep_done}: {self.compute_metrics()}")
+        return ep_done
+
+    def _run_minibatch(self, step, phase_epochs, epochs, ep_done, ve,
+                       verbose_each):
+        ds = self.train_loader.dataset
+        if ds.X.nbytes + ds.Y.nbytes > self.DEVICE_RESIDENT_BYTES:
+            raise NotImplementedError(
+                "minibatch training of a dataset over 512 MB (the host loop) is "
+                "not ported yet (ROADMAP Queue 1 item 21)")
+        MB = self.train_loader.batch_size
+        Xd, Yd = self._put(ds.X), self._put(ds.Y)
+        n = ds.X.shape[0]
+        n_batches, rem = divmod(n, MB)
+        t0 = time.time()
+        pending = []        # each epoch's last full-batch row, on the device
+        for ep in range(phase_epochs):
+            perm = (self.train_loader._rng.permutation(n)
+                    if self.train_loader.shuffle else np.arange(n))
+            perm = torch.from_numpy(perm).to(self.device)
+            for b in range(n_batches):
+                ids = perm[b * MB:(b + 1) * MB]
+                last = self._step(step, Xd[ids], Yd[ids])
+            if rem:
+                # the remainder batch (the reference's drop_last=False)
+                ids = perm[n - rem:]
+                self._step(step, Xd[ids], Yd[ids])
+            pending.append(last)
+            ep_done += 1
+            check = ep_done % 50 == 0
+            show = bool(verbose_each) and ep_done % verbose_each == 0
+            evaluate = ve <= epochs and ep_done % ve == 0
+            if check or show or evaluate or ep == phase_epochs - 1:
+                self._record(pending)
+                pending = []
+            if check:
+                self._check_finite(f"epoch {ep_done}")
+            if show:
+                print(f"| epoch {ep_done}/{epochs}  "
+                      f"ELBO {float(self.loss_curve[-1]):.4f} "
+                      f"({(time.time() - t0) / (ep + 1) * 1e3:.2f}ms/ep)")
+            if evaluate:
+                print(f"|   eval @ {ep_done}: {self.compute_metrics()}")
+        return ep_done
+
+    def _build_phase_optimizer(self, specs, lr_ALL, opt, frozen,
+                               clip_norm=None):
+        """The phase's step: a function of the gradients (a list in
+        `tree_leaves` order) that updates the parameters in place.
+
+        The Adam family keeps its state across phases and train() calls
+        while the kind is unchanged (a parameter first activated in a later
+        phase starts with fresh moments); another kind starts afresh.  'sgd'
+        is stateless.
+        """
+        leaves = tree_leaves(self.params)
+        if opt in GA.KINDS:
+            lr_t, wd_t, act_t = (tree_leaves(t) for t in GA.annotations_from_specs(
+                self.params, specs, lr_ALL, frozen_labels=frozen,
+                # the reference runs torch.optim.AdamW with its defaults, so
+                # wd=0.01 applies to every group that does not set it
+                default_wd=0.01 if opt == "adam_W" else 0.0))
+            if not (isinstance(self._opt_state_carry, GA.GroupAdamState)
+                    and self._opt_state_kind == opt):
+                self._opt_state_carry = GA.init_state(self.params)
+            self._opt_state_kind = opt
+            state = self._opt_state_carry
+
+            def step(grads):
+                if clip_norm is not None:
+                    scale = torch.clamp(clip_norm / (_global_norm(grads) + 1e-12),
+                                        max=1.0)
+                    grads = [g * scale for g in grads]
+                GA.update(grads, state, leaves, lr_t, wd_t, act_t, kind=opt)
+
+            return step
+
+        self._opt_state_kind = opt
+        self._opt_state_carry = None
+        update, _ = build_grouped_optimizer(self.params, specs, lr_ALL, opt,
+                                            frozen_labels=frozen)
+
+        def step(grads):
+            if clip_norm is not None:
+                gnorm = _global_norm(grads)
+                grads = [torch.where(gnorm < clip_norm, g, g / gnorm * clip_norm)
+                         for g in grads]
+            with torch.no_grad():
+                for p, u in zip(leaves, tree_leaves(update(grads, leaves))):
+                    p.add_(u)
+
+        return step
+
+    # ------------------------------------------------------------------
+    # Checkpoints
+    # ------------------------------------------------------------------
+    def save(self, *args, **kwargs):
+        raise NotImplementedError("Trainer checkpoints are not ported yet "
+                                  "(ROADMAP Queue 1 item 20)")
+
+    def restore(self, *args, **kwargs):
+        raise NotImplementedError("Trainer checkpoints are not ported yet "
+                                  "(ROADMAP Queue 1 item 20)")
+
+    # ------------------------------------------------------------------
+    # Evaluation
+    # ------------------------------------------------------------------
+    @torch.no_grad()
+    def _eval_batch(self, X, Y):
+        """(log p(Y|X) (Dy,), predictive mean (Dy, MB), whether each Y lies
+        inside its 95% band of S_test predictive samples (Dy, MB))."""
+        spec, params = self.spec, self.params
+        log_p = tgp_mod.test_log_likelihood(spec, params, X, Y, self._Y_std_dev)
+        X3 = tgp_mod._ensure_3d(spec, X)
+        qf = tgp_mod.marginal_qf(spec, params, X3)
+        m1 = tgp_mod.predictive_distribution(spec, params, X3, qf=qf)[0]
+        samples = tgp_mod.sample_predictive(spec, params, X3, self.S_test,
+                                            self._gen, qf=qf)[0]
+        return log_p, m1, inside_95(samples, Y.T, dim=1)
+
+    def _metrics_for_loader(self, loader):
+        Dy = self.spec.Dy
+        ElogL, sq_err, coverage = np.zeros(Dy), np.zeros(Dy), np.zeros(Dy)
+        tot = 0
+        for X, Y in loader:
+            log_p, m1, inside = self._eval_batch(self._put(X), self._put(Y))
+            ElogL += log_p.cpu().numpy()
+            sq_err += np.sum((m1.cpu().numpy() - np.asarray(Y).T) ** 2, axis=-1)
+            coverage += inside.sum(dim=-1).cpu().numpy()
+            tot += X.shape[0]
+        return {"logL": ElogL / tot, "rmse": self.Y_std * np.sqrt(sq_err / tot),
+                "coverage": coverage / tot}
+
+    def compute_metrics(self):
+        """Full-split metrics (logL, rmse, coverage per output) for
+        train/valid/test."""
+        if self.eval_device is not None:
+            raise NotImplementedError("eval_device is not ported yet (ROADMAP "
+                                      "Queue 1 item 20)")
+        if self.fully_bayesian:
+            raise NotImplementedError(tgp_mod._TODO_BAYES)
+        res = {"train": self._metrics_for_loader(self.train_loader)}
+        if self.valid_loader is not None:
+            res["valid"] = self._metrics_for_loader(self.valid_loader)
+        if self.test_loader is not None:
+            res["test"] = self._metrics_for_loader(self.test_loader)
+        return res

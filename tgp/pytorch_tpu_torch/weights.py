@@ -2,15 +2,14 @@
 
   * `params_from_jax` turns a JAX-package parameter tree, given as numpy
     arrays, into the port's params: the layout is the same dict/list tree,
-    so this is a leaf-wise conversion.
+    so this is a leaf-wise conversion.  `params_to_numpy` is its inverse.
   * `spec_from_dict` builds the port's `TGPSpec` from the dict that the JAX
     package's `models/serialization.py::spec_to_dict` emits.
   * `flagship_spec` / `flagship_params` build the flagship TGP that the
     serving path is measured on (the shapes of `benchmarks/serving.py`), with
     a seeded numpy perturbation of its init so that the flow is not the
     identity and the posterior is not trivial.  No trained weights ship with
-    the repo; serving a model trained by the port comes with the training
-    slice.
+    the repo: a model trained by the port's `train.Trainer` serves as it is.
 """
 
 from __future__ import annotations
@@ -37,6 +36,20 @@ def tree_map(fn, tree):
     return fn(tree)
 
 
+def tree_leaves(tree):
+    """The leaves of a params tree as a list, in `tree_map`'s order (the
+    order in which `jax.tree_util` flattens the same tree)."""
+    out = []
+    tree_map(out.append, tree)
+    return out
+
+
+def tree_unflatten(like, leaves):
+    """A tree shaped as `like` holding `leaves` (in `tree_leaves` order)."""
+    it = iter(leaves)
+    return tree_map(lambda _: next(it), like)
+
+
 def params_from_jax(tree, device=None, dtype=None):
     """JAX-package params (leaves as numpy arrays) -> the port's params."""
     dtype = dtype or cfg.default_dtype()
@@ -44,6 +57,12 @@ def params_from_jax(tree, device=None, dtype=None):
     # torch.tensor copies: JAX hands out read-only numpy views
     return tree_map(
         lambda a: torch.tensor(np.asarray(a), dtype=dtype).to(device), tree)
+
+
+def params_to_numpy(tree):
+    """The port's params -> the same tree with numpy leaves (host copies),
+    which the JAX package takes as its params."""
+    return tree_map(lambda t: t.detach().cpu().numpy().copy(), tree)
 
 
 def _kernel_from_dict(d) -> KernelSpec:
@@ -134,13 +153,21 @@ def perturb_params(params, seed: int):
     return out
 
 
-def flagship_params(spec: TGPSpec, X_train, seed: int = 0, dtype=None,
-                    device=None):
-    """The flagship's init (Z = the first M training rows, lengthscale and
-    output scale 2, noise 0.05, identity SAL blocks) perturbed by
-    `perturb_params(seed)`."""
-    params = init_tgp_params(
+def flagship_init(spec: TGPSpec, X_train, variance_scale: float = 1.0,
+                  dtype=None, device=None):
+    """The flagship's init: Z = the first M training rows, lengthscale and
+    output scale 2, noise 0.05, identity SAL blocks, whitened q(U) =
+    N(0, variance_scale I)."""
+    return init_tgp_params(
         spec, X_train, np.asarray(X_train)[:spec.M],
+        variance_scale=variance_scale,
         kernel_init={"length_scale": 2.0, "kernel_scale": 2.0},
         noise_init=0.05, dtype=dtype, device=device)
-    return perturb_params(params, seed)
+
+
+def flagship_params(spec: TGPSpec, X_train, seed: int = 0, dtype=None,
+                    device=None):
+    """The flagship's init (`flagship_init`) perturbed by
+    `perturb_params(seed)`."""
+    return perturb_params(
+        flagship_init(spec, X_train, dtype=dtype, device=device), seed)
