@@ -10,10 +10,12 @@ Phases, each of which fails the run (non-zero exit) on any error:
   2. kernel: both kernels against their plain torch versions on the card at
      the serving shapes (K_zz 100x100, K_xz 256x100 and 4096x100, a ragged
      batched case, fp64), the training shape 8611x100 (fp32 and fp64) and
-     the pair (K_xz and K_zz in one launch) at 256, 4096 and 8611 rows: the
-     forward, the backward kernel (twice, bitwise equal) and the autograd
-     gradients, with device times from CUDA-graph replays beside the bound;
-     and one Gram of 2,200,000 rows;
+     the pair (K_xz and K_zz in one launch) at 256, 4096 and 8611 rows and
+     at the experiment CLI's shapes (boston 455+100 and 51+100 at Dx=13 in
+     fp64 and fp32; M=20 at naval's, protein's and kin8nm's batches, Dx 17,
+     9 and 8): the forward, the backward kernel (twice, bitwise equal) and
+     the autograd gradients, with device times from CUDA-graph replays
+     beside the bound; and one Gram of 2,200,000 rows;
   3. serving: `serve.Predictor` on the flagship TGP (UCI power split 1, SAL 2
      flow, scale-RBF ARD kernel, whitened q(U) with M=100, 100 Gauss-Hermite
      nodes, fp32, buckets 256/4096) answering moments, band, sample,
@@ -31,8 +33,14 @@ Phases, each of which fails the run (non-zero exit) on any error:
      on the card against the CPU in fp32 and in fp64 (q(U) through its KL
      curve there), exactly 1 forward launch and 1 backward kernel call per
      step, `compute_metrics` against the CPU's on the same trained
-     parameters; then steps/s of `tgp.pytorch_tpu_torch.bench` and a
-     profile of 10 steps.
+     parameters; then the step time (median of 5 x 10 steps) and a profile
+     of 10 steps (steps/s is `python -m tgp.pytorch_tpu_torch.bench`'s);
+  6. experiment: the experiment CLI (`experiments.main.run`) on boston TGP
+     at M=100 (StepTanhL(10, 2), identity-fitted, then 200 epochs) on the
+     card against the CPU in fp64 and fp32, SVGP boston against the CPU,
+     all nine bundled regression datasets with their table archs for 5
+     epochs, exactly 1 forward launch and 1 backward call per training
+     step; the boston TGP step's time and profile.
 The line before the last holds the kernels' JSON record, the last line
 `{"ok": true, "device": {...}}`.  Details go to chiprun_out/chip_smoke.json.
 """
@@ -175,6 +183,19 @@ KERNEL_SHAPES = [  # (label, Dy, N, M, Dx, dtype, pair)
     ("pair 4096+100 fp32", 1, 4096, 100, 4, F32, True),
     ("pair 8611+100 fp32", 1, 8611, 100, 4, F32, True),
     ("pair 8611+100 fp64", 1, 8611, 100, 4, F64, True),
+    # the experiment CLI's shapes: boston TGP M=100 (455 training rows and
+    # 51 test rows, Dx=13) in fp64 and fp32; the nine-dataset pass at M=20:
+    # naval (the widest Dx, 17) and protein (Dx=9) in minibatches of 10000
+    # and their last batches, kin8nm's full batch (Dx=8)
+    ("pair 455+100 Dx=13 fp64", 1, 455, 100, 13, F64, True),
+    ("pair 51+100 Dx=13 fp64", 1, 51, 100, 13, F64, True),
+    ("pair 455+100 Dx=13 fp32", 1, 455, 100, 13, F32, True),
+    ("pair 51+100 Dx=13 fp32", 1, 51, 100, 13, F32, True),
+    ("pair 10000+20 Dx=17 fp32", 1, 10000, 20, 17, F32, True),
+    ("pair 740+20 Dx=17 fp32", 1, 740, 20, 17, F32, True),
+    ("pair 10000+20 Dx=9 fp32", 1, 10000, 20, 9, F32, True),
+    ("pair 1157+20 Dx=9 fp32", 1, 1157, 20, 9, F32, True),
+    ("pair 7372+20 Dx=8 fp32", 1, 7372, 20, 8, F32, True),
 ]
 # more rows than the earlier kernel's grid took (65535 tiles of 32)
 BIG_GRAM = ("K_xz 2200000x8 Dx=1 fp32", 1, 2_200_000, 8, 1, F32)
@@ -186,8 +207,12 @@ def kernel_phase(dev):
     gen = torch.Generator(device=dev).manual_seed(0)
     rows = []
     for label, Dy, N, M, Dx, dtype, pair in KERNEL_SHAPES:
-        X1 = torch.randn(Dy, N, Dx, generator=gen, device=dev, dtype=dtype)
-        X2 = torch.randn(Dy, M, Dx, generator=gen, device=dev, dtype=dtype)
+        # scaled so that d2 is of order 4 at any Dx, as lengthscale-scaled
+        # inputs are: at Dx=17 unscaled rows would leave every K below the
+        # fp32 tolerance
+        sc = min(1.0, 2.0 / Dx ** 0.5)
+        X1 = sc * torch.randn(Dy, N, Dx, generator=gen, device=dev, dtype=dtype)
+        X2 = sc * torch.randn(Dy, M, Dx, generator=gen, device=dev, dtype=dtype)
         ks = torch.rand(Dy, generator=gen, device=dev, dtype=dtype) + 0.5
         fused, plain = ((R.rbf_gram_pair, R.rbf_gram_pair_reference) if pair
                         else (lambda *a: (R.rbf_gram(*a),),
@@ -726,17 +751,14 @@ def training_phase(dev):
                 f" gap {abs(a - b):.3e} (limit {lim:.3e})")
             checks.append((abs(a - b) <= lim, f"{split} {k}: card {a}, CPU {b}"))
 
-    # 4. throughput: the bench loop, then a profile of 10 steps
-    t0 = time.perf_counter()
+    # 4. the step time (steps/s is the standalone bench's), then a profile
+    # of 10 steps
     tr = bench.flagship_trainer(dev)
-    steps_per_s = bench.bench(tr)
-    log(f"training bench: {steps_per_s:.2f} steps/s (best of {bench.WINDOWS} "
-        f"windows of 2 x {bench.CHUNK} full-batch steps, "
-        f"{time.perf_counter() - t0:.1f} s in all)")
 
     def ten_steps():
         tr.train(10, bench.LR, "adam", verbose_each=0)
 
+    ten_steps()                                          # warm-up
     times = []
     for _ in range(5):
         t0 = time.perf_counter()
@@ -754,8 +776,308 @@ def training_phase(dev):
         f"{per_step['gram_bwd_ms'] * 1e3:.2f} us a step")
     for name, ms in prof["top_ms"]:
         log(f"    {ms * 1e3 / 10:9.2f} us a step  {name}")
-    result.update(steps_per_s=steps_per_s, step_ms=step_ms,
-                  profile_per_step=per_step, profile_top_ms=prof["top_ms"])
+    result.update(step_ms=step_ms, profile_per_step=per_step,
+                  profile_top_ms=prof["top_ms"])
+    for cond, msg in checks:
+        check(cond, msg)
+    return result
+
+
+# ---------------------------------------------------------------------------
+# phase 6: the experiment CLI
+# ---------------------------------------------------------------------------
+
+EXP_EPOCHS = 200          # training epochs of the boston runs
+EXP_M = 100               # the README's headline model: boston TGP, M=100
+# The nine-dataset pass: 5 epochs each at a smaller M (k-means on protein's
+# 41157 rows takes half a minute at M=100 on the host); the identity fit of
+# the Step* archs keeps its 2000 epochs.
+# boston's entry is the fp32 run at M=100 above (its 200 epochs include 5)
+EXP_DATASETS = ("concrete", "energy", "kin8nm", "naval", "power", "protein",
+                "wine_red", "wine_white")
+EXP_ALL_EPOCHS, EXP_ALL_M = 5, 20
+# Limits on the card against the CPU after the identity fit and 200 epochs,
+# relative to the largest entry of the CPU's fp64 run ("flow" and "fit":
+# the largest gap over the trained flow's and the identity fit's leaves):
+# 10x the gaps measured on an NVIDIA H100 80GB HBM3 at 700 W.  The fit
+# repeats the CPU's to 5e-14; the 200 Adam epochs amplify the order of
+# sums as in the training phase, to 1e-7 in Z and 5e-7 in q_L.
+EXP_F64_LIMITS = {
+    "fit_mse": 5.0e-13, "fit": 5.2e-13, "curve": 1.5e-8, "kld": 5.9e-10,
+    "Z": 1.1e-6, "q_mu": 3.1e-8, "q_L": 5.1e-6,
+    "kernel/child/raw_lengthscale": 3.0e-9, "kernel/raw_outputscale": 7.4e-11,
+    "likelihood/log_var_noise": 2.0e-10, "flow": 1.9e-7,
+    "train/logL": 1.3e-8, "train/rmse": 2.7e-7, "test/logL": 9.2e-8,
+    "test/rmse": 2.6e-7}
+# fp32, the card against the CPU's fp32 run, 10x the measured gaps; q(U)
+# is held through the KL curve only (see TRAIN_F32_LIMITS)
+EXP_F32_LIMITS = {
+    "fit_mse": 5.2e-5, "fit": 1.7e-4, "curve": 5.3e-5, "kld": 1.1e-5,
+    "Z": 1.6e-2, "kernel/child/raw_lengthscale": 9.9e-5,
+    "kernel/raw_outputscale": 6.7e-6, "likelihood/log_var_noise": 4.9e-6,
+    "flow": 9.2e-4, "train/logL": 6.2e-5, "train/rmse": 3.0e-3,
+    "test/logL": 1.4e-4, "test/rmse": 2.5e-3}
+EXP_SVGP_LIMITS = {"curve": 1.6e-4, "train/logL": 1.8e-4, "train/rmse": 2.3e-4,
+                   "test/logL": 1.8e-3, "test/rmse": 9.3e-3}
+
+
+def cli_run(model, dataset, M, epochs, precision, platform):
+    """`experiments.main.run` as the command line would call it; the
+    precision goes back to fp32 after it."""
+    from tgp.pytorch_tpu_torch import config as cfg
+    from tgp.pytorch_tpu_torch.experiments import main as X
+
+    try:
+        return X.run(X.parse_args([
+            "--model", model, "--dataset", dataset,
+            "--train_test_seed_split", "1", "--num_inducing", str(M),
+            "--epochs", str(epochs), "--precision", precision,
+            "--platform", platform, "--verbose_each", "0"]))
+    finally:
+        cfg.set_precision("fp32")
+
+
+def exp_values(run):
+    """Everything a run is compared by, fp64 on the host, by name: the
+    identity fit's MSE and leaves ('fit/...'), the ELBO and KL curves, the
+    trained parameters and the metrics."""
+    out = {"curve": np.asarray(run.trainer.loss_curve, np.float64),
+           "kld": np.asarray(run.trainer.kld_curve, np.float64)}
+    if run.identity_fit is not None:
+        out["fit_mse"] = np.asarray([run.identity_fit[2]])
+        out.update(("fit/" + n.split("/", 1)[1], t.double().cpu().numpy())
+                   for n, t in named_leaves({"f": run.identity_fit[1]}))
+    out.update((n, t.detach().double().cpu().numpy())
+               for n, t in named_leaves(run.trainer.params))
+    for split in ("train", "test"):
+        for k in ("logL", "rmse"):
+            out[f"{split}/{k}"] = np.asarray(run.metrics[split][k], np.float64)
+    return out
+
+
+def exp_group(name):
+    return name.split("/")[0] if name.startswith(("flow/", "fit/")) else name
+
+
+def rule_group(name):
+    """The groups the 4x rule against fp64 compares: the metrics together,
+    the flow's and the fit's leaves together, every other name alone."""
+    return "metrics" if name.startswith(("train/", "test/")) else exp_group(name)
+
+
+def exp_gaps(runs, pairs, names):
+    """{name: {pair: gap}}: max |a - b| relative to the largest entry of
+    the CPU's fp64 run."""
+    ref = runs["cpu64"]
+    return {n: {k: float(np.abs(runs[a][n] - runs[b][n]).max()
+                         / (np.abs(ref[n]).max() or 1.0))
+                for k, (a, b) in pairs.items()} for n in names}
+
+
+def group_max(gaps, pair):
+    out = {}
+    for n, g in gaps.items():
+        out[exp_group(n)] = max(out.get(exp_group(n), 0.0), g[pair])
+    return out
+
+
+def exp_run(model, dataset, M, epochs, precision, platform):
+    """One CLI run as the main path: the Gram kernel's counts set to 0 just
+    before it and read just after.  Returns the `Run` and its summary (what
+    the phase compares and checks, host values only)."""
+    from tgp.pytorch_tpu_torch.ops import rbf_gram as R
+
+    t0 = time.perf_counter()
+    # --- the main path: counts from 0 ------------------------------------
+    R.LAUNCHES = R.BWD_LAUNCHES = 0
+    run = cli_run(model, dataset, M, epochs, precision, platform)
+    counts = (R.LAUNCHES, R.BWD_LAUNCHES)
+    # -----------------------------------------------------------------------
+    tr = run.trainer
+    return run, dict(
+        tag=f"{model} {dataset} M={M} {precision} on the "
+            f"{'card' if platform == 'gpu' else 'CPU'}",
+        platform=platform, values=exp_values(run), line=run.line,
+        kernel_calls=run.kernel_calls, counts=counts,
+        steps=len(tr.loss_curve) * len(tr.train_loader),
+        device=tr.params["Z"].device.type, batches=len(tr.train_loader),
+        Z0=run.Z0, arch=[s.kind for s in tr.spec.flow][:4],
+        seconds=time.perf_counter() - t0)
+
+
+def exp_job(*args):
+    """`exp_run` in a worker process: its summary, the CLI's own printing
+    kept out of the log, two torch threads (the host has 8 cores for the
+    main process and 3 workers)."""
+    import contextlib
+    import io
+
+    torch.set_num_threads(2)
+    with contextlib.redirect_stdout(io.StringIO()):
+        return exp_run(*args)[1]
+
+
+def experiment_phase(dev):
+    """The port's experiment CLI (`experiments.main.run`) as a user runs it:
+    boston TGP at M=100 (StepTanhL(10, 2) identity-fitted for 2000 epochs,
+    then 200 Adam epochs, full batch) on the card against the CPU in fp64
+    and in fp32, SVGP boston against the CPU in fp32, every bundled
+    regression dataset's table arch on the card for 5 epochs, and the boston
+    TGP step's time and profile.  Each card run trains through exactly 1
+    forward launch and 1 backward kernel call per step.  The card's boston
+    runs go in this process; the CPU's runs and the other datasets' in 3
+    worker processes at the same time (each eager run is host-bound)."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    result, checks = {}, []
+    B = ("boston", EXP_M, EXP_EPOCHS)
+    jobs = {ds: ("TGP", ds, EXP_ALL_M, EXP_ALL_EPOCHS, "fp32", "gpu")
+            for ds in EXP_DATASETS}
+    jobs.update(cpu32=("TGP",) + B + ("fp32", "cpu"),
+                cpu64=("TGP",) + B + ("fp64", "cpu"),
+                svgp_cpu32=("SVGP",) + B + ("fp32", "cpu"))
+    # the longest first: energy's StepTanhL(15, 4) fit, boston's on the CPU,
+    # protein's and concrete's
+    first = ("energy", "cpu32", "protein", "cpu64", "concrete")
+    order = sorted(jobs, key=lambda k: first.index(k) if k in first else 9)
+    with ProcessPoolExecutor(
+            max_workers=3, mp_context=multiprocessing.get_context("spawn")) as pool:
+        futures = {k: pool.submit(exp_job, *jobs[k]) for k in order}
+        tgp64, s_gpu64 = exp_run("TGP", *B, "fp64", "gpu")
+        tgp32, s_gpu32 = exp_run("TGP", *B, "fp32", "gpu")
+        s_svgp = exp_run("SVGP", *B, "fp32", "gpu")[1]
+        summ = {k: f.result() for k, f in futures.items()}
+    summ.update(gpu64=s_gpu64, gpu32=s_gpu32, svgp_gpu32=s_svgp)
+
+    counts = {"launches": 0, "bwd_launches": 0}
+    for k, sm in summ.items():
+        log(f"experiment {sm['tag']}: {sm['line']}; kernel calls "
+            f"{sm['kernel_calls']} ({sm['seconds']:.1f} s)")
+        if sm["platform"] != "gpu":
+            continue
+        counts["launches"] += sm["counts"][0]
+        counts["bwd_launches"] += sm["counts"][1]
+        checks.append((sm["kernel_calls"]["train"] == (sm["steps"], sm["steps"]),
+                       f"{sm['tag']}: {sm['kernel_calls']['train']} kernel "
+                       f"calls in {sm['steps']} training steps"))
+        checks.append((sm["counts"] == tuple(
+            a + b for a, b in zip(*sm["kernel_calls"].values())),
+            f"{sm['tag']}: counts {sm['counts']} against {sm['kernel_calls']}"))
+        checks.append((sm["device"] == "cuda", f"{sm['tag']}: on the card"))
+    vals = {k: summ[k]["values"] for k in ("gpu64", "cpu64", "gpu32", "cpu32")}
+
+    # 1. boston TGP, fp64: the card against the CPU
+    check(np.array_equal(summ["gpu64"]["Z0"], summ["cpu64"]["Z0"]), "k-means Z0")
+    g64 = exp_gaps(vals, {"gpu64_vs_cpu64": ("gpu64", "cpu64")},
+                   list(vals["cpu64"]))
+    gm64 = group_max(g64, "gpu64_vs_cpu64")
+    for n, g in gm64.items():
+        log(f"experiment TGP fp64 {n:30s} gpu64 vs cpu64 {g:.3e}")
+        checks.append((g <= EXP_F64_LIMITS[n], f"fp64 experiment {n}: {g}"))
+    result.update(tgp_fp64_gaps=g64, tgp_fp64_group_gaps=gm64,
+                  tgp_fp64_line=tgp64.line, init_mse=tgp64.identity_fit[2])
+
+    # 2. the same in fp32: the card against the CPU's fp32 run, each
+    # against fp64
+    pairs = {"gpu32_vs_cpu32": ("gpu32", "cpu32"),
+             "gpu32_vs_cpu64": ("gpu32", "cpu64"),
+             "cpu32_vs_cpu64": ("cpu32", "cpu64")}
+    g32 = exp_gaps(vals, pairs, list(vals["cpu64"]))
+    gm32 = {p: group_max(g32, p) for p in pairs}
+    for n in gm32["gpu32_vs_cpu32"]:
+        log(f"experiment TGP fp32 {n:30s} gpu32 vs cpu32 "
+            f"{gm32['gpu32_vs_cpu32'][n]:.3e}  gpu32 vs cpu64 "
+            f"{gm32['gpu32_vs_cpu64'][n]:.3e}  cpu32 vs cpu64 "
+            f"{gm32['cpu32_vs_cpu64'][n]:.3e}")
+    for n, g in gm32["gpu32_vs_cpu32"].items():
+        if n in EXP_F32_LIMITS:                         # q(U): the KL curve
+            checks.append((g <= EXP_F32_LIMITS[n],
+                           f"fp32 experiment {n} card vs CPU: {g}"))
+    # Against fp64, by groups: after 2200 fp32 Adam steps each run's
+    # distance to fp64 is a walk of its own, and one scalar of the CPU's
+    # can land near fp64 by chance (train rmse 1.2e-5 where test rmse sat
+    # 7.8e-4 in the first measurement), so the rule compares the largest
+    # gap of each group
+    by_rule = {}
+    for n, g in g32.items():
+        if exp_group(n) in ("q_mu", "q_L"):
+            continue
+        r = by_rule.setdefault(rule_group(n), [0.0, 0.0])
+        r[0] = max(r[0], g["gpu32_vs_cpu64"])
+        r[1] = max(r[1], g["cpu32_vs_cpu64"])
+    for n, (gpu, cpu) in by_rule.items():
+        checks.append((gpu <= max(4 * cpu, 1e-5),
+                       f"fp32 experiment {n} card vs fp64 {gpu}, CPU {cpu}"))
+    result.update(tgp_fp32_gaps=g32, tgp_fp32_group_gaps=gm32,
+                  tgp_fp32_line=tgp32.line)
+
+    # 3. SVGP boston, fp32: the card against the CPU
+    sv = {"gpu32": summ["svgp_gpu32"]["values"],
+          "cpu32": summ["svgp_cpu32"]["values"]}
+    sv["cpu64"] = sv["cpu32"]                          # gaps relative to it
+    gs = exp_gaps(sv, {"gpu32_vs_cpu32": ("gpu32", "cpu32")},
+                  list(EXP_SVGP_LIMITS))
+    for n, g in gs.items():
+        log(f"experiment SVGP fp32 {n:12s} gpu32 vs cpu32 {g['gpu32_vs_cpu32']:.3e}")
+        checks.append((g["gpu32_vs_cpu32"] <= EXP_SVGP_LIMITS[n],
+                       f"SVGP experiment {n}: {g}"))
+    result.update(svgp_gaps=gs, svgp_line=summ["svgp_gpu32"]["line"])
+
+    # 4. every bundled regression dataset with its table arch, fp32
+    table = {}
+    for ds in ("boston",) + EXP_DATASETS:
+        sm = summ["gpu32" if ds == "boston" else ds]
+        v = sm["values"]
+        epochs = EXP_EPOCHS if ds == "boston" else EXP_ALL_EPOCHS
+        ok = (len(v["curve"]) == epochs and np.isfinite(v["curve"]).all()
+              and all(np.isfinite(v[f"{s}/{k}"]).all()
+                      for s in ("train", "test") for k in ("logL", "rmse")))
+        checks.append((ok, f"{ds}: ELBO {v['curve']}, {sm['line']}"))
+        table[ds] = dict(line=sm["line"], batches=sm["batches"],
+                         kernel_calls=sm["kernel_calls"],
+                         elbo=float(v["curve"][-1]), arch=sm["arch"],
+                         init_mse=float(v["fit_mse"][0]) if "fit_mse" in v
+                         else None, seconds=sm["seconds"])
+    result["datasets"] = table
+    seconds = {sm["tag"]: sm["seconds"] for sm in summ.values()}
+
+    # 5. the boston TGP step on the card (fp64, the CLI's default, and fp32):
+    # the median of 5 x 10 steps, then a profile of 10
+    from tgp.pytorch_tpu_torch import config as cfg
+
+    timing = {}
+    for prec, run in (("fp64", tgp64), ("fp32", tgp32)):
+        tr = run.trainer
+        cfg.set_precision(prec)
+        try:
+            def ten_steps():
+                tr.train(10, 0.01, "adam", verbose_each=0)
+
+            times = []
+            for _ in range(5):
+                t0 = time.perf_counter()
+                ten_steps()
+                times.append((time.perf_counter() - t0) / 10)
+            step_ms = 1e3 * float(np.median(times))
+            prof = profile_device(ten_steps)
+        finally:
+            cfg.set_precision("fp32")
+        per_step = {k: prof[k] / 10 for k in ("device_ops", "device_busy_ms",
+                                              "gram_ms", "gram_bwd_ms")}
+        timing[prec] = dict(step_ms=step_ms, steps_per_s=1e3 / step_ms,
+                            profile_per_step=per_step,
+                            profile_top_ms=prof["top_ms"])
+        log(f"experiment boston TGP {prec} step {step_ms:.3f} ms "
+            f"({1e3 / step_ms:.2f} steps/s, median of 5 x 10); "
+            f"{per_step['device_ops']:.1f} device ops, busy "
+            f"{per_step['device_busy_ms']:.3f} ms = "
+            f"{per_step['device_busy_ms'] / step_ms:.1%} of a step; Gram "
+            f"forward {per_step['gram_ms'] * 1e3:.2f} us, backward "
+            f"{per_step['gram_bwd_ms'] * 1e3:.2f} us a step")
+        for name, ms in prof["top_ms"]:
+            log(f"    {ms * 1e3 / 10:9.2f} us a step  {name}")
+    result.update(timing=timing, seconds=seconds, **counts)
     for cond, msg in checks:
         check(cond, msg)
     return result
@@ -787,6 +1109,9 @@ def main() -> int:
     serving = serving_phase(dev)
     grad = gradient_phase(dev)
     training = training_phase(dev)
+    t0 = time.perf_counter()
+    experiment = experiment_phase(dev)
+    log(f"experiment phase {time.perf_counter() - t0:.1f} s")
 
     fp32_rows = [r for r in rows if "fp32" in r["shape"]]
     train = next(r for r in rows if r["shape"] == "pair 8611+100 fp32")
@@ -795,7 +1120,7 @@ def main() -> int:
         dict(name="rbf_gram", source="tgp/pytorch_tpu_torch/csrc/rbf_gram.cu",
              replaces="tgp/pytorch_tpu/ops/pallas/rbf_gram.py:85",
              launches=(serving["launches"] + grad["launches"]
-                       + training["launches"]),
+                       + training["launches"] + experiment["launches"]),
              max_abs_err=max(r["max_abs_err"] for r in fp32_rows + [big]),
              ms=train["ms"], plain_ms=train["plain_ms"],
              bound_ms=train["bound_ms"], bound_by=train["bound_by"], **common),
@@ -803,7 +1128,8 @@ def main() -> int:
              source="tgp/pytorch_tpu_torch/csrc/rbf_gram_bwd.cu",
              replaces="tgp/pytorch_tpu/ops/pallas/rbf_gram.py:114",
              launches=(serving["bwd_launches"] + grad["bwd_launches"]
-                       + training["bwd_launches"]),
+                       + training["bwd_launches"]
+                       + experiment["bwd_launches"]),
              max_abs_err=max(r["bwd_max_abs_err"] for r in fp32_rows),
              ms=train["bwd_ms"], plain_ms=train["bwd_plain_ms"],
              bound_ms=train["bwd_bound_ms"], bound_by=train["bwd_bound_by"],
@@ -815,7 +1141,7 @@ def main() -> int:
         device=name, nvidia_smi=smi, torch=torch.__version__,
         cuda=torch.version.cuda, build_s=build_s, kernel_rows=rows,
         big_gram=big, serving=serving, gradient=grad, training=training,
-        record=record), indent=1, default=_jsonable))
+        experiment=experiment, record=record), indent=1, default=_jsonable))
 
     log(smi)
     log(json.dumps(record))

@@ -1,0 +1,173 @@
+"""The port's experiment CLI (`tgp.pytorch_tpu_torch.experiments.main`)
+against the JAX package's (`experiments/main.py`), on the CPU in fp64.
+
+Both `run`s take the same flags: boston split 1, M=5, 20 epochs, for SVGP
+and for TGP (boston's table arch StepTanhL(10, 2), identity-fitted for 2000
+epochs first).  The JAX run's k-means centers, identity fit and Trainer are
+caught by wrapping the functions it looks up.  Compared at rtol 1e-8, atol
+1e-10 (the measured gaps are far inside: Z0 2e-15, the identity fit's
+parameters 3e-12, the ELBO curve 1e-15 relative, the final parameters
+2e-11 relative to their largest entry, logL and RMSE 1e-15): Z0, the flow
+spec, the fitted identity parameters and MSE, the ELBO and KL curves, every
+final parameter, logL and RMSE, and the printed result line but its time.
+"""
+
+import dataclasses
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+import tgp.pytorch_tpu.data as jdata
+import tgp.pytorch_tpu.flows.initializers as jinit
+import tgp.pytorch_tpu.train as jtrain
+from tgp.pytorch_tpu import config as jcfg
+
+from tgp.pytorch_tpu_torch import config as pcfg, weights
+from tgp.pytorch_tpu_torch.experiments import main as pmain
+
+REPO = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(REPO / "experiments"))
+import main as jmain              # noqa: E402
+
+F64 = dict(rtol=1e-8, atol=1e-10)
+ARGV = ["--dataset", "boston", "--train_test_seed_split", "1",
+        "--num_inducing", "5", "--epochs", "20", "--platform", "cpu",
+        "--verbose_each", "0"]
+
+
+@pytest.fixture(autouse=True)
+def _port_state():
+    """The CLI sets the port's and the JAX package's precision: both, and
+    torch's default dtype and thread count, are left as they were."""
+    prev, jprev, dt = pcfg.precision(), jcfg.precision(), torch.get_default_dtype()
+    nt = torch.get_num_threads()
+    yield
+    pcfg.set_precision(prev)
+    if jcfg.precision() != jprev:
+        jcfg.set_precision(jprev)
+    torch.set_num_threads(nt)
+    assert torch.get_default_dtype() == dt
+
+
+def close(port, ref, **tol):
+    port = port.detach().cpu().numpy() if torch.is_tensor(port) else port
+    np.testing.assert_allclose(np.asarray(port, np.float64),
+                               np.asarray(ref, np.float64), **(tol or F64))
+
+
+def jax_run(monkeypatch, argv):
+    """The JAX CLI's run, with its k-means centers, identity fit and
+    Trainer caught."""
+    seen = {}
+
+    class Caught(jtrain.Trainer):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            seen["trainer"] = self
+
+    def wrap(fn, key):
+        def inner(*a, **k):
+            seen[key] = fn(*a, **k)
+            return seen[key]
+        return inner
+
+    monkeypatch.setattr(jtrain, "Trainer", Caught)
+    monkeypatch.setattr(jinit, "fit_flow_to_identity",
+                        wrap(jinit.fit_flow_to_identity, "fit"))
+    monkeypatch.setattr(jdata, "kmeans_centers",
+                        wrap(jdata.kmeans_centers, "Z0"))
+    m = jmain.run(jmain.parse_args(argv))
+    return m, seen
+
+
+def result_line(out):
+    """The result line's fields but the training time."""
+    line = [ln for ln in out.splitlines() if ln.startswith("Dataset ")][-1]
+    return line.rsplit(" (", 1)[0]
+
+
+@pytest.mark.parametrize("model", ["SVGP", "TGP"])
+def test_cli_matches_the_jax_cli(monkeypatch, capsys, model):
+    argv = ["--model", model] + ARGV
+    mj, seen = jax_run(monkeypatch, argv)
+    jline = result_line(capsys.readouterr().out)
+    torch.set_num_threads(1)        # the eager flow's small ops run faster
+    res = pmain.run(pmain.parse_args(argv))
+    pline = result_line(capsys.readouterr().out)
+    assert pline == jline and pline == res.line.rsplit(" (", 1)[0]
+
+    close(res.Z0, seen["Z0"])
+    jt, pt = seen["trainer"], res.trainer
+    assert [dataclasses.astuple(s) for s in pt.spec.flow] == \
+        [dataclasses.astuple(s) for s in jt.spec.flow]
+    if model == "TGP":
+        assert len(pt.spec.flow) == 20 and pt.spec.flow[0].kind == "step_flow"
+        jspec, jparams, jmse = seen["fit"]
+        pspec, pparams, pmse = res.identity_fit
+        close(pmse, jmse)
+        jl, pl = jax.tree_util.tree_leaves(jparams), weights.tree_leaves(pparams)
+        assert len(jl) == len(pl) == 100
+        for a, b in zip(jl, pl):
+            close(b, a)
+    else:
+        assert res.identity_fit is None
+    for attr in ("loss_curve", "ell_curve", "kld_curve"):
+        got = np.asarray(getattr(pt, attr), np.float64)
+        want = np.asarray([float(v) for v in getattr(jt, attr)])
+        assert got.shape == want.shape == (20,)
+        close(got, want)
+    jl = jax.tree_util.tree_leaves_with_path(jt.params)
+    pl = weights.tree_leaves(pt.params)
+    assert len(jl) == len(pl)
+    for (path, a), b in zip(jl, pl):
+        close(b, a, err_msg=jax.tree_util.keystr(path), **F64)
+    for split in ("train", "test"):
+        for k in ("logL", "rmse"):
+            close(res.metrics[split][k], mj[split][k])
+    # the Gram kernel's calls were counted (on the CPU no kernel launches)
+    assert res.kernel_calls == {"train": (0, 0), "eval": (0, 0)}
+
+
+@pytest.mark.parametrize("flags, item", [
+    (["--model", "ID_TGP"], "item 13"),
+    (["--model", "WGP"], "item 16"),
+    (["--model", "DGP"], "item 19"),
+    (["--model", "TGP", "--precision", "bf16"], "item 20"),
+    (["--model", "TGP", "--fast_solves"], "item 18"),
+    (["--model", "TGP", "--solve_precision", "high"], "item 18"),
+    (["--model", "TGP", "--solve_warmup_epochs", "100"], "item 18"),
+    (["--model", "TGP", "--plateau_guard"], "item 18"),
+    (["--model", "TGP", "--natgrad", "0.1"], "item 19"),
+    (["--model", "SVGP", "--natgrad_force"], "item 19"),
+    (["--model", "SVGP", "--natgrad_warmup", "10"], "item 19"),
+    (["--model", "TGP", "--mesh", "4x2"], "item 20"),
+    (["--model", "SVGP", "--checkpoint_dir", "ckpt"], "item 20"),
+    (["--model", "SVGP", "--rng_impl", "rbg"], "item 20"),
+])
+def test_unported_models_and_flags_refuse(flags, item):
+    with pytest.raises(SystemExit, match=f"ROADMAP Queue 1 {item}"):
+        pmain.run(pmain.parse_args(flags + ARGV))
+
+
+def test_cli_exits_non_zero_naming_the_item():
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    res = subprocess.run(
+        [sys.executable, "-m", "tgp.pytorch_tpu_torch.experiments.main",
+         "--model", "ID_TGP"] + ARGV, cwd=REPO, env=env, capture_output=True,
+        text=True, timeout=300)
+    assert res.returncode != 0 and "item 13" in res.stderr
+
+
+def test_cli_needs_a_card_unless_asked_for_the_cpu():
+    if torch.cuda.is_available():
+        pytest.skip("this host has a card; the default platform is valid here")
+    argv = ["--model", "SVGP"] + ARGV[:-4] + ["--verbose_each", "0"]
+    assert "--platform" not in argv
+    with pytest.raises(SystemExit, match="no CUDA device"):
+        pmain.run(pmain.parse_args(argv))

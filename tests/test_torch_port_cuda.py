@@ -27,6 +27,12 @@ pytestmark = pytest.mark.cuda
 SHAPES = [(1, 100, 100, 4), (1, 256, 100, 4), (1, 4096, 100, 4),
           (2, 131, 77, 3), (3, 1, 1, 9)]
 TRAIN = (1, 8611, 100, 4)       # the flagship's full-batch training Gram
+# the experiment CLI's: boston TGP M=100 (455 training and 51 test rows,
+# Dx=13); M=20 at naval's (Dx=17) and protein's (Dx=9) minibatches of 10000
+# and last batches, and kin8nm's full batch (Dx=8)
+CLI_SHAPES = [(1, 455, 100, 13), (1, 51, 100, 13), (1, 10000, 20, 17),
+              (1, 740, 20, 17), (1, 10000, 20, 9), (1, 1157, 20, 9),
+              (1, 7372, 20, 8)]
 
 
 @pytest.fixture
@@ -76,7 +82,7 @@ def test_kernel_matches_plain_version(dev, shape, dtype):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 # (2, 37, 300, 50): Z too wide for the shared-memory budget, staged in chunks
-@pytest.mark.parametrize("shape", SHAPES + [TRAIN, (2, 37, 300, 50)])
+@pytest.mark.parametrize("shape", SHAPES + [TRAIN, (2, 37, 300, 50)] + CLI_SHAPES)
 def test_pair_kernel_matches_plain_version(dev, shape, dtype):
     Xs, Zs, ks = _inputs(dev, shape, dtype)
     before = R.LAUNCHES
@@ -107,7 +113,7 @@ def test_gradients_match_autograd_of_plain_version(dev, dtype):
 @pytest.mark.parametrize("pair", [False, True])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("shape", [(2, 131, 77, 3), (1, 4096, 100, 4), TRAIN,
-                                   (3, 1, 1, 9), (2, 37, 300, 50)])
+                                   (3, 1, 1, 9), (2, 37, 300, 50)] + CLI_SHAPES)
 def test_backward_kernel_matches_plain_version(dev, shape, dtype, pair):
     Xs, Zs, ks = _inputs(dev, shape, dtype, seed=2)
     Dy, N, M, _ = shape
@@ -230,3 +236,57 @@ def test_trainer_on_the_card_is_bitwise_repeatable(dev):
     assert np.array_equal(np.asarray(a.loss_curve), np.asarray(b.loss_curve))
     for p, q in zip(weights.tree_leaves(a.params), weights.tree_leaves(b.params)):
         assert torch.equal(p, q)
+
+
+# The experiment CLI on the card against the port on the CPU, fp64, boston
+# split 1, M=5, 20 epochs (StepTanhL(10, 2) identity-fitted for 2000 epochs
+# first): limits relative to the largest entry of the CPU's value ("flow"
+# and "fit": the largest over the trained flow's and the identity fit's
+# leaves), 10x the gaps measured on an NVIDIA H100 80GB HBM3 at 700 W
+# (the metrics agreed to the bit; their limit is 1e-14, a few ulps).
+CLI_F64_LIMITS = {"fit": 5.2e-13, "curve": 3.4e-15, "params": 4.8e-15,
+                  "flow": 5.8e-12, "metrics": 1e-14}
+
+
+def _cli(platform):
+    from tgp.pytorch_tpu_torch.experiments import main as X
+    try:
+        return X.run(X.parse_args([
+            "--model", "TGP", "--dataset", "boston", "--train_test_seed_split",
+            "1", "--num_inducing", "5", "--epochs", "20", "--platform",
+            platform, "--verbose_each", "0"]))
+    finally:
+        pcfg.set_precision("fp32")
+
+
+def _rel(a, b):
+    a, b = (np.asarray(x.detach().cpu() if torch.is_tensor(x) else x,
+                       np.float64) for x in (a, b))
+    return float(np.abs(a - b).max() / (np.abs(b).max() or 1.0))
+
+
+def test_cli_on_the_card_matches_the_cpu_and_counts_its_launches(dev):
+    before = (R.LAUNCHES, R.BWD_LAUNCHES)
+    gpu = _cli("gpu")
+    calls = (R.LAUNCHES - before[0], R.BWD_LAUNCHES - before[1])
+    cpu = _cli("cpu")
+    # 1 forward launch and 1 backward call per full-batch step; evaluation
+    # launches twice per batch (test_log_likelihood and marginal_qf) on the
+    # training and the test split
+    assert gpu.kernel_calls == {"train": (20, 20), "eval": (4, 0)}
+    assert calls == (24, 20)
+    assert gpu.trainer.params["Z"].device == dev
+    assert np.array_equal(gpu.Z0, cpu.Z0)
+    fit = max(_rel(a, b) for a, b in zip(weights.tree_leaves(gpu.identity_fit[1]),
+                                          weights.tree_leaves(cpu.identity_fit[1])))
+    assert fit <= CLI_F64_LIMITS["fit"]
+    assert _rel(gpu.trainer.loss_curve, cpu.trainer.loss_curve) <= CLI_F64_LIMITS["curve"]
+    paths = weights.tree_leaves(param_paths(gpu.trainer.params))
+    for n, a, b in zip(paths, weights.tree_leaves(gpu.trainer.params),
+                       weights.tree_leaves(cpu.trainer.params)):
+        lim = CLI_F64_LIMITS["flow" if n.startswith("flow/") else "params"]
+        assert _rel(a, b) <= lim, n
+    for split in ("train", "test"):
+        for k in ("logL", "rmse"):
+            assert _rel(gpu.metrics[split][k], cpu.metrics[split][k]) \
+                <= CLI_F64_LIMITS["metrics"], (split, k)

@@ -173,8 +173,10 @@ def test_unported_flows_and_likelihoods_raise():
     fl = jG.SAL(1, input_dependent=True, input_dim=3)
     with pytest.raises(NotImplementedError, match="item 13"):
         p_spec_from_list(fl)
-    with pytest.raises(NotImplementedError, match="item 15"):
-        p_spec_from_list(jG.BoxCoxL(1))
+    with pytest.raises(NotImplementedError, match="item 13"):
+        p_spec_from_list(jG.StepTanhL(1, 2, input_dependent=True, input_dim=3))
+    with pytest.raises(ValueError, match="unknown flow kind"):
+        p_spec_from_list([("no_such_flow", {})])
     spec_j, *_ = build("sal2")
     d = jser.spec_to_dict(dataclasses.replace(
         spec_j, likelihood=JLik("bernoulli", 1)))

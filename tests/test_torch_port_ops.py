@@ -71,9 +71,16 @@ def test_transforms_match(dtype):
     close(ptr.softplus(xt), jtr.softplus(jnp.asarray(x)), **tol)
     close(ptr.safe_sinh(xt), jtr.safe_sinh(jnp.asarray(x)), **tol)
     close(ptr.safe_exp(xt), jtr.safe_exp(jnp.asarray(x)), **tol)
+    close(ptr.safe_tanh(xt), jtr.safe_tanh(jnp.asarray(x)), **tol)
     pos = np.abs(x[:50]) + 0.1
-    close(ptr.inv_softplus(torch.as_tensor(pos)),
-          jtr.inv_softplus(jnp.asarray(pos)), **tol)
+    post = torch.as_tensor(pos)
+    close(ptr.inv_softplus(post), jtr.inv_softplus(jnp.asarray(pos)), **tol)
+    for kind in ("exp", "softplus"):
+        close(ptr.positive(xt[:50], kind), jtr.positive(jnp.asarray(x[:50]), kind),
+              **tol)
+        close(ptr.inverse_positive(post, kind),
+              jtr.inverse_positive(jnp.asarray(pos), kind), **tol)
+        close(ptr.positive(ptr.inverse_positive(post, kind), kind), pos, **tol)
     np.testing.assert_array_equal(ptr.np_inv_softplus(pos),
                                   jtr.np_inv_softplus(pos))
 

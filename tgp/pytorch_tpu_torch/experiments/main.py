@@ -1,0 +1,221 @@
+"""The experiment CLI of the port, for SVGP and TGP:
+
+    python -m tgp.pytorch_tpu_torch.experiments.main --model {SVGP,TGP} \\
+        --dataset <name> --train_test_seed_split S --num_inducing M \\
+        [--epochs E] [--precision fp64|fp32] [--platform gpu|cpu]
+
+It takes the flags of the repo's `experiments/main.py` (the JAX package's
+CLI) and does what that CLI does for these two models: the UCI split,
+k-means inducing points, the dataset's flow architecture from the paper's
+tables (Step* archs fitted to the identity first), the same model and init,
+Adam for --epochs at --lr, then the test metrics and the same result line.
+Defaults are the paper's: batch 10000, 15000 epochs, lr 0.01, noise 0.05,
+lengthscale and output scale 2, q(U) variance 1e-5, whitened, fp64 with 100
+quadrature points, S_test 100.
+
+It runs on the card (`--platform gpu`, the default) or, when asked, on the
+CPU; without a card and without `--platform cpu` it exits non-zero.  Models
+and options the port does not have yet exit non-zero and name their ROADMAP
+item.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import time
+
+import numpy as np
+import torch
+
+
+def parse_args(argv=None):
+    p = argparse.ArgumentParser(description="TGP on the GPU (PyTorch port)")
+    p.add_argument("--model", required=True,
+                   choices=["SVGP", "TGP", "ID_TGP", "WGP", "DGP"],
+                   help="SVGP and TGP are ported; ID_TGP, WGP and DGP exit "
+                        "naming their ROADMAP item")
+    p.add_argument("--layers", type=int, default=2, help="DGP depth")
+    p.add_argument("--dgp_flow", action="store_true")
+    p.add_argument("--S_train", type=int, default=1)
+    p.add_argument("--warp_arch", default="SAL",
+                   choices=["SAL", "log_exp", "StepTanhL"])
+    p.add_argument("--warp_terms", type=int, default=3)
+    p.add_argument("--dataset", required=True)
+    p.add_argument("--train_test_seed_split", required=True, type=int)
+    p.add_argument("--num_inducing", required=True, type=int)
+    p.add_argument("--epochs", type=int, default=15000)
+    p.add_argument("--lr", type=float, default=0.01)
+    p.add_argument("--batch_size", type=int, default=10000)
+    p.add_argument("--precision", default="fp64",
+                   choices=["fp64", "fp32", "bf16"])
+    p.add_argument("--nnet_inference", default=None,
+                   choices=[None, "MC_dropout", "mean_field_gaussian"])
+    p.add_argument("--rng_impl", default="threefry2x32",
+                   choices=["threefry2x32", "rbg"])
+    p.add_argument("--platform", default="gpu", choices=["gpu", "cpu"],
+                   help="gpu (the default) needs a CUDA device")
+    p.add_argument("--S_test", type=int, default=100)
+    p.add_argument("--verbose_each", type=int, default=100)
+    p.add_argument("--checkpoint_dir", default=None)
+    p.add_argument("--train_seed", type=int, default=0,
+                   help="seed of the evaluation samples' generator")
+    p.add_argument("--fast_solves", action="store_true")
+    p.add_argument("--solve_precision", default="highest",
+                   choices=["highest", "high", "default"])
+    p.add_argument("--solve_warmup_epochs", type=int, default=0)
+    p.add_argument("--plateau_guard", nargs="?", const="warn", default=None,
+                   choices=["warn", "raise", "recover"])
+    p.add_argument("--natgrad", type=float, default=None, metavar="GAMMA")
+    p.add_argument("--natgrad_force", action="store_true")
+    p.add_argument("--natgrad_warmup", type=int, default=None, metavar="K")
+    p.add_argument("--mesh", default=None, metavar="DPxTY")
+    return p.parse_args(argv)
+
+
+def refusal(args):
+    """The message for a model or option the port lacks, naming its
+    ROADMAP Queue 1 item, or None."""
+    todo = {
+        "ID_TGP": "--model ID_TGP (input-dependent flows) is not ported yet "
+                  "(ROADMAP Queue 1 item 13)",
+        "WGP": "--model WGP (the warped likelihood) is not ported yet "
+               "(ROADMAP Queue 1 item 16)",
+        "DGP": "--model DGP (deep GPs) is not ported yet (ROADMAP Queue 1 "
+               "item 19)"}
+    if args.model in todo:
+        return todo[args.model]
+    levers = [
+        (args.precision == "bf16", "--precision bf16", 20),
+        (args.fast_solves, "--fast_solves", 18),
+        (args.solve_precision != "highest",
+         f"--solve_precision {args.solve_precision}", 18),
+        (args.solve_warmup_epochs > 0, "--solve_warmup_epochs", 18),
+        (args.plateau_guard is not None, "--plateau_guard", 18),
+        (args.natgrad is not None, "--natgrad", 19),
+        (args.natgrad_force, "--natgrad_force", 19),
+        (args.natgrad_warmup is not None, "--natgrad_warmup", 19),
+        (args.mesh is not None, "--mesh", 20),
+        (args.checkpoint_dir is not None, "--checkpoint_dir", 20),
+        (args.rng_impl == "rbg", "--rng_impl rbg", 20),
+    ]
+    for on, flag, item in levers:
+        if on:
+            return f"{flag} is not ported yet (ROADMAP Queue 1 item {item})"
+    return None
+
+
+@dataclasses.dataclass
+class Run:
+    """What `run` did: `metrics` is what the JAX CLI's `run` returns
+    (`Trainer.compute_metrics()`); the rest is for checking and timing."""
+
+    metrics: dict
+    trainer: object
+    Z0: np.ndarray
+    #: the identity fit of a Step* arch: (flow spec, fitted params, MSE)
+    identity_fit: tuple | None
+    train_s: float
+    line: str
+    #: Gram kernel calls while training and while evaluating, each
+    #: (forward launches, backward calls), read from `ops.rbf_gram`
+    kernel_calls: dict
+
+
+def run(args) -> Run:
+    msg = refusal(args)
+    if msg:
+        raise SystemExit(msg)
+
+    from .. import config as cfg
+    from ..data import kmeans_centers, return_dataset
+    from ..flows.core import IDENTITY_SPEC
+    from ..flows.initializers import fit_flow_to_identity
+    from ..likelihoods.gaussian import LikelihoodSpec
+    from ..models import tgp as M
+    from ..ops import kernels as K, rbf_gram as R
+    from ..train import Trainer
+    from ..weights import tree_map
+    from . import flow_arch as FA
+    from .exp_config import return_hyperparams
+
+    cfg.set_precision(args.precision)
+    if args.platform == "cpu":
+        device = torch.device("cpu")
+    elif torch.cuda.is_available():
+        device = cfg.default_device()
+    else:
+        raise SystemExit("no CUDA device is available; pass --platform cpu "
+                         "to run on the CPU")
+
+    # ---- data and the inducing points ------------------------------------
+    loaders, dc = return_dataset(args.dataset, args.batch_size, None,
+                                 seed=args.train_test_seed_split,
+                                 options={"shuffle_train": True})
+    Dy, Dx = dc["Dy"], dc["Dx"]
+    Z0 = kmeans_centers(dc["X_tr"], args.num_inducing, n_init=10,
+                        seed=cfg.config_seed)
+
+    # ---- flow architecture -------------------------------------------------
+    hp = return_hyperparams(args.model, args.dataset)
+    flow_spec, flow_inits, fit = IDENTITY_SPEC, None, None
+    if args.model == "TGP":
+        arch, nb, ns = hp["flow_arch"], hp["num_blocks"], hp["num_steps"]
+        if FA.is_step_arch(arch):
+            print("==== running identity-fit flow initializer ====", flush=True)
+            y = dc["Y_tr"]
+            fit = fit_flow_to_identity(
+                FA.make_step_gen(arch, nb, ns),
+                float(y.min()) - 1.0, float(y.max()) + 1.0,
+                num_restarts=1, num_epochs=2000, device=device)
+            flow_spec = fit[0]
+            print(f"initializer MSE {fit[2]:.3e}", flush=True)
+        else:
+            np.random.seed(cfg.config_seed)
+            flow_spec, flow_inits = FA.build_point_flow(arch, nb)
+
+    # ---- likelihood, kernel, model -------------------------------------------
+    if args.model == "SVGP":
+        lik = LikelihoodSpec("gaussian", Dy, noise_is_shared=False)
+    else:
+        lik = LikelihoodSpec("gaussian_flow", Dy, noise_is_shared=False,
+                             quad_points=cfg.quad_points)
+    spec = M.TGPSpec(Dy=Dy, Dx=Dx, M=args.num_inducing, N=float(dc["N_tr"]),
+                     kernel=K.from_name("scale_rbf"), likelihood=lik,
+                     flow=flow_spec, mean="zero", whiten=True)
+    params = M.init_tgp_params(
+        spec, dc["X_tr"], Z0, variance_scale=1e-5, mean_scale=0.0,
+        kernel_init={"length_scale": 2.0, "kernel_scale": 2.0},
+        noise_init=0.05, flow_inits=flow_inits, device=device)
+    if fit is not None:
+        params["flow"] = tree_map(lambda x: torch.stack([x] * Dy), fit[1])
+
+    # ---- train and evaluate --------------------------------------------------
+    trainer = Trainer(spec, params, loaders, dc["Y_std"], S_test=args.S_test,
+                      seed=args.train_seed, device=device)
+    calls0 = (R.LAUNCHES, R.BWD_LAUNCHES)
+    t0 = time.time()
+    trainer.train(args.epochs, args.lr, "adam",
+                  optimisation_schedule=([1.0], [None]),
+                  verbose_each=args.verbose_each)
+    train_time = time.time() - t0
+    calls1 = (R.LAUNCHES, R.BWD_LAUNCHES)
+    m = trainer.compute_metrics()
+    calls2 = (R.LAUNCHES, R.BWD_LAUNCHES)
+
+    test = m["test"]
+    print("\n=====================================")
+    print("== Results obtained after training ==")
+    print("=====================================")
+    line = (f"Dataset {args.dataset}, M {args.num_inducing}, {args.model}, "
+            f"Test NLL {-test['logL'][0]:.3f}, Test RMSE {test['rmse'][0]:.3f} "
+            f"({train_time:.1f}s train)")
+    print(line, flush=True)
+    return Run(metrics=m, trainer=trainer, Z0=Z0, identity_fit=fit,
+               train_s=train_time, line=line, kernel_calls={
+                   "train": tuple(b - a for a, b in zip(calls0, calls1)),
+                   "eval": tuple(b - a for a, b in zip(calls1, calls2))})
+
+
+if __name__ == "__main__":
+    run(parse_args())

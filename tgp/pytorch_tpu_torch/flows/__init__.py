@@ -3,8 +3,10 @@ from .core import (
     FlowCtx,
     IDENTITY_SPEC,
     flow_forward,
+    flow_inverse,
+    flow_kld,
     init_flow_params,
-    is_identity_spec,
     spec_from_list,
+    is_identity_spec,
 )
 from . import generators

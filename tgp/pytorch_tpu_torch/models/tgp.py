@@ -13,6 +13,7 @@ Whitened path (the one ported):
 with L = chol(K_zz + jitter I), S = tril(Lq) tril(Lq)^T, and only the
 diagonal of the covariance materialised.
 
+Every point-estimate flow kind is ported, step_flow and log_exp included.
 Not ported yet: whiten=False, full covariances, fast_solves, solve_precision
 levers and per-output flow architectures (item 18), input-dependent flows,
 their KL terms and fully-Bayesian prediction (item 13), and `spec.remat`
@@ -276,19 +277,30 @@ def _warp_clip(f):
     return torch.clamp(f, -big, big)
 
 
+def _per_output(tree):
+    """Stacked per-output flow parameters, every leaf (Dy, *rest), as
+    (Dy, 1, *rest): a scalar's (Dy, 1) broadcasts against the trailing
+    (Dy, MB) axes of f, and a `log_exp` vector keeps its terms on the last
+    axis.  Walks step_flow's nested {"sub", "gates"} trees."""
+    if isinstance(tree, dict):
+        return {k: _per_output(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_per_output(v) for v in tree]
+    return tree.unsqueeze(1)
+
+
 def _make_warp(spec: TGPSpec, params):
     """Build warp: f (S, Dy, MB) -> (S, Dy, MB), point-estimate flows.
 
-    The JAX package vmaps the flow over Dy; here the stacked per-output
-    parameters (Dy,) are reshaped to (Dy, 1), which broadcasts against the
-    trailing (Dy, MB) axes of f.  A shared flow uses its 0-d parameters as
-    they are.
+    The JAX package vmaps the flow over Dy; here the per-output axis of the
+    stacked parameters broadcasts against f (`_per_output`).  A shared flow
+    uses its parameters as they are.
     """
     if not spec.has_flow:
         return lambda f: f
     fp = params["flow"]
     if not spec.flow_is_shared:
-        fp = [{k: v.reshape(-1, 1) for k, v in p.items()} for p in fp]
+        fp = _per_output(fp)
 
     def warp(f):
         return _warp_clip(flow_forward(spec.flow, fp, f))

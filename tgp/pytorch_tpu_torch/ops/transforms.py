@@ -56,6 +56,12 @@ def safe_exp(x):
     return torch.exp(torch.clamp(x, max=lim))
 
 
+def safe_tanh(x):
+    """tanh with the argument clipped to +-30 (exact: tanh saturates to 1
+    ulp of +-1 well before 30), as the JAX package computes it."""
+    return torch.tanh(torch.clamp(x, -30.0, 30.0))
+
+
 def inv_softplus(x):
     """Numerically-stable inverse of softplus: log(exp(x) - 1)."""
     return x + torch.log(-torch.expm1(-x))
@@ -64,3 +70,20 @@ def inv_softplus(x):
 def np_inv_softplus(x):
     x = np.asarray(x, dtype=np.float64)
     return x + np.log(-np.expm1(-x))
+
+
+def positive(x, kind: str = "exp"):
+    """Map an unconstrained parameter to a strictly positive value."""
+    if kind == "exp":
+        return torch.exp(x)
+    if kind == "softplus":
+        return softplus(x)
+    raise NotImplementedError(kind)
+
+
+def inverse_positive(x, kind: str = "exp"):
+    if kind == "exp":
+        return torch.log(x)
+    if kind == "softplus":
+        return inv_softplus(x)
+    raise NotImplementedError(kind)
