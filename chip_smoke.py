@@ -40,7 +40,18 @@ Phases, each of which fails the run (non-zero exit) on any error:
      card against the CPU in fp64 and fp32, SVGP boston against the CPU,
      all nine bundled regression datasets with their table archs for 5
      epochs, exactly 1 forward launch and 1 backward call per training
-     step; the boston TGP step's time and profile.
+     step; the boston TGP step's time and profile;
+  7. ID_TGP (`--model ID_TGP`, the paper's BA-TGP): boston M=100 (the
+     2000-epoch hypernet anchor fit, then 200 epochs) on the card against
+     the CPU in fp64 and fp32 with the same replayed dropout masks, the
+     same with the card's own draws (the step's time and profile, the
+     anchor fit's epoch), the VI nets (`--nnet_inference
+     mean_field_gaussian`), power's deeper nets for 3 epochs with the
+     fully-Bayesian evaluation over the 8611 training rows (peak device
+     memory); 1 forward launch and 1 backward call a step, none in the
+     anchor fit, 2 forward launches an evaluation batch.  Phase 3 also
+     serves power's ID_TGP fully Bayesian (`Predictor(fully_bayesian=True)`,
+     S_MC=100): moments and bands at both buckets, 1 launch a request.
 The line before the last holds the kernels' JSON record, the last line
 `{"ok": true, "device": {...}}`.  Details go to chiprun_out/chip_smoke.json.
 """
@@ -196,6 +207,8 @@ KERNEL_SHAPES = [  # (label, Dy, N, M, Dx, dtype, pair)
     ("pair 10000+20 Dx=9 fp32", 1, 10000, 20, 9, F32, True),
     ("pair 1157+20 Dx=9 fp32", 1, 1157, 20, 9, F32, True),
     ("pair 7372+20 Dx=8 fp32", 1, 7372, 20, 8, F32, True),
+    # ID_TGP power (fp64, the CLI's default): its 957 test rows
+    ("pair 957+100 fp64", 1, 957, 100, 4, F64, True),
 ]
 # more rows than the earlier kernel's grid took (65535 tiles of 32)
 BIG_GRAM = ("K_xz 2200000x8 Dx=1 fp32", 1, 2_200_000, 8, 1, F32)
@@ -821,7 +834,7 @@ EXP_SVGP_LIMITS = {"curve": 1.6e-4, "train/logL": 1.8e-4, "train/rmse": 2.3e-4,
                    "test/logL": 1.8e-3, "test/rmse": 9.3e-3}
 
 
-def cli_run(model, dataset, M, epochs, precision, platform):
+def cli_run(model, dataset, M, epochs, precision, platform, extra=()):
     """`experiments.main.run` as the command line would call it; the
     precision goes back to fp32 after it."""
     from tgp.pytorch_tpu_torch import config as cfg
@@ -832,7 +845,7 @@ def cli_run(model, dataset, M, epochs, precision, platform):
             "--model", model, "--dataset", dataset,
             "--train_test_seed_split", "1", "--num_inducing", str(M),
             "--epochs", str(epochs), "--precision", precision,
-            "--platform", platform, "--verbose_each", "0"]))
+            "--platform", platform, "--verbose_each", "0", *extra]))
     finally:
         cfg.set_precision("fp32")
 
@@ -1083,6 +1096,419 @@ def experiment_phase(dev):
     return result
 
 
+# ---------------------------------------------------------------------------
+# phase 7: ID_TGP, the input-dependent flows (the paper's BA-TGP)
+# ---------------------------------------------------------------------------
+
+ID_EPOCHS = 200           # training epochs of the boston runs (after the fit)
+ID_M = 100                # the README's headline row: boston ID_TGP, M=100
+ID_POWER_EPOCHS = 3       # power ID_TGP, the deeper nets: a short run
+ID_SEED = 11              # the replayed draws' CPU generator
+# Limits on the card against the CPU, both drawing the same masks, relative
+# to the largest entry of the CPU's fp64 run ("fit": the anchor fit's
+# leaves, "flow": the trained flow's, both relative to the largest entry of
+# the group): 10x the gaps measured on an NVIDIA H100 80GB HBM3 at 700 W.
+# fp64 repeats the CPU closely (the fit to 2.8e-16, the curve to 8.5e-8);
+# fp32's fit loss moves 1e-2 (a loss of 1e-15 in fp64, rounding in fp32).
+ID_F64_LIMITS = {
+    "fit_loss": 8.2e-11, "fit": 2.8e-15, "curve": 8.5e-7, "kld": 2.2e-7,
+    "Z": 8.6e-6, "q_mu": 1.2e-5, "q_L": 2.3e-5,
+    "kernel/child/raw_lengthscale": 1.3e-6, "kernel/raw_outputscale": 1.9e-6,
+    "likelihood/log_var_noise": 5.7e-8, "flow": 1.8e-5, "train/logL": 5.5e-8,
+    "train/rmse": 3.8e-7, "test/logL": 1.3e-7, "test/rmse": 4.3e-7,
+    "bayes/train/logL": 1.3e-8, "bayes/train/rmse": 4.1e-7,
+    "bayes/test/logL": 1.1e-7, "bayes/test/rmse": 3.7e-7}
+ID_F32_LIMITS = {
+    "fit_loss": 9.8e-2, "fit": 1.4e-6, "curve": 3.5e-5, "kld": 4.1e-6,
+    "Z": 6.1e-4, "q_mu": 5.4e-4, "q_L": 2.0e-3,
+    "kernel/child/raw_lengthscale": 1.9e-5, "kernel/raw_outputscale": 2.7e-5,
+    "likelihood/log_var_noise": 3.0e-6, "flow": 9.9e-3, "train/logL": 1.4e-5,
+    "train/rmse": 3.9e-6, "test/logL": 1.8e-5, "test/rmse": 5.4e-5,
+    "bayes/train/logL": 1.1e-5, "bayes/train/rmse": 2.7e-6,
+    "bayes/test/logL": 1.4e-5, "bayes/test/rmse": 5.1e-5}
+# The card's own draws against the replayed run (the same model, other
+# masks): the result lines' test NLL within 0.3 and RMSE within 25%,
+# stated before the first measurement
+ID_NATIVE_BAND = dict(nll=0.3, rmse=0.25)
+
+
+class CpuDraws:
+    """The hypernets' draws (`flows.hypernet._draw`) from one seeded CPU
+    generator, moved to the run's device: a run on the card and one on the
+    CPU that make the same calls see the same masks and noise."""
+
+    def __init__(self, seed):
+        self.gen = torch.Generator().manual_seed(seed)
+
+    def __call__(self, kind, shape, p, generator, dtype, device):
+        if kind == "keep":
+            v = torch.rand(shape, generator=self.gen, dtype=torch.float64) < p
+        else:
+            v = torch.randn(shape, generator=self.gen,
+                            dtype=torch.float64).to(dtype)
+        return v.to(device)
+
+
+def id_values(run):
+    """`exp_values` of an ID_TGP run, with the anchor fit's leaves
+    ('fit/...') and loss, and the fully-Bayesian metrics ('bayes/...')."""
+    out = exp_values(run)
+    out["fit_loss"] = np.asarray([run.anchor_fit[1]])
+    out.update(("fit/" + n.split("/", 1)[1], t.double().cpu().numpy())
+               for n, t in named_leaves({"f": run.anchor_fit[0]}))
+    for split in ("train", "test"):
+        for k in ("logL", "rmse"):
+            out[f"bayes/{split}/{k}"] = np.asarray(
+                run.metrics_bayes[split][k], np.float64)
+    return out
+
+
+def id_group(name):
+    if name.startswith(("flow/", "fit/")):
+        return name.split("/")[0]
+    return name
+
+
+def id_run(dataset, M, epochs, precision, platform, replay=None,
+           inference=None):
+    """One ID_TGP CLI run as the main path, its counts from 0; `replay`
+    seeds `CpuDraws` for the hypernets' draws (None: the run's own
+    generator).  Returns the `Run` and its summary (host values only)."""
+    from tgp.pytorch_tpu_torch.flows import hypernet as H
+    from tgp.pytorch_tpu_torch.ops import rbf_gram as R
+
+    extra = ("--nnet_inference", inference) if inference else ()
+    prev = H._draw
+    if replay is not None:
+        H._draw = CpuDraws(replay)
+    if platform == "gpu":
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        # --- the main path: counts from 0 --------------------------------
+        R.LAUNCHES = R.BWD_LAUNCHES = 0
+        run = cli_run("ID_TGP", dataset, M, epochs, precision, platform, extra)
+        counts = (R.LAUNCHES, R.BWD_LAUNCHES)
+        # -------------------------------------------------------------------
+    finally:
+        H._draw = prev
+    tr = run.trainer
+    return run, dict(
+        tag=f"ID_TGP {dataset} M={M} {precision} on the "
+            f"{'card' if platform == 'gpu' else 'CPU'}"
+            + (f", replayed draws" if replay is not None else "")
+            + (f", {inference}" if inference else ""),
+        platform=platform, values=id_values(run), lines=(run.line, run.line_bayes),
+        kernel_calls=run.kernel_calls, counts=counts,
+        steps=len(tr.loss_curve) * len(tr.train_loader),
+        batches=(len(tr.train_loader), len(tr.test_loader)),
+        anchor_fit_s=run.anchor_fit_s, train_s=run.train_s,
+        device=tr.params["Z"].device.type,
+        peak_mem_gb=(torch.cuda.max_memory_allocated() / 2 ** 30
+                     if platform == "gpu" else None),
+        seconds=time.perf_counter() - t0)
+
+
+def id_job(*args, **kw):
+    """`id_run` in a worker process (two torch threads, the CLI's printing
+    kept out of the log): its summary."""
+    import contextlib
+    import io
+
+    torch.set_num_threads(2)
+    with contextlib.redirect_stdout(io.StringIO()):
+        return id_run(*args, **kw)[1]
+
+
+def id_phase(dev):
+    """ID_TGP through the port's CLI (`experiments.main.run --model
+    ID_TGP`), as a user runs it:
+      (i) boston M=100 (SAL(1), hypernets 13 -> 25 -> 1, tanh, dropout 0.5):
+          the 2000-epoch anchor fit and 200 Adam epochs, on the card and on
+          the CPU in fp64 and fp32 with the same replayed draws, held
+          together leaf by leaf;
+     (ii) the same with the card's own generator: finite, within a stated
+          band of (i), the step's time and a 10-step profile, the anchor
+          fit's epoch time and profile;
+    (iii) --nnet_inference mean_field_gaussian: the flow's KL term is in the
+          ELBO and the result is finite;
+     (iv) power M=100 (SAL(3), nets 4 -> 50 -> 50 -> 1, relu, dropout 0.25)
+          for a few epochs, with the fully-Bayesian evaluation at S_MC=100
+          over the 8611 training rows, and the peak device memory.
+    Every card run: 1 forward launch and 1 backward call a training step,
+    none in the anchor fit, 2 forward launches an evaluation batch (point
+    and Bayesian alike).  The CPU's runs go to 2 worker processes."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    from tgp.pytorch_tpu_torch import config as cfg
+    from tgp.pytorch_tpu_torch.flows.initializers import fit_hypernet_to_anchors
+    from tgp.pytorch_tpu_torch.models import tgp as M
+    from tgp.pytorch_tpu_torch.weights import tree_map
+
+    result, checks = {}, []
+    B = ("boston", ID_M, ID_EPOCHS)
+    with ProcessPoolExecutor(
+            max_workers=2, mp_context=multiprocessing.get_context("spawn")) as pool:
+        futures = {k: pool.submit(id_job, *B, prec, "cpu", replay=ID_SEED)
+                   for k, prec in (("cpu64", "fp64"), ("cpu32", "fp32"))}
+        _, s_gpu64 = id_run(*B, "fp64", "gpu", replay=ID_SEED)
+        run32, s_gpu32 = id_run(*B, "fp32", "gpu", replay=ID_SEED)
+        native, s_native = id_run(*B, "fp64", "gpu")
+        vi, s_vi = id_run(*B, "fp64", "gpu", inference="mean_field_gaussian")
+        power, s_power = id_run("power", ID_M, ID_POWER_EPOCHS, "fp64", "gpu")
+        summ = {k: f.result() for k, f in futures.items()}
+    summ.update(gpu64=s_gpu64, gpu32=s_gpu32, native=s_native, vi=s_vi,
+                power=s_power)
+
+    counts = {"launches": 0, "bwd_launches": 0}
+    for k, sm in summ.items():
+        log(f"ID_TGP {sm['tag']}: {sm['lines'][0]} | {sm['lines'][1]}; "
+            f"kernel calls {sm['kernel_calls']}; anchor fit "
+            f"{sm['anchor_fit_s']:.1f} s, training {sm['train_s']:.1f} s "
+            f"({sm['seconds']:.1f} s in all)")
+        if sm["platform"] != "gpu":
+            continue
+        kc = sm["kernel_calls"]
+        counts["launches"] += sm["counts"][0]
+        counts["bwd_launches"] += sm["counts"][1]
+        n_eval = sum(sm["batches"])
+        checks += [
+            (kc["train"] == (sm["steps"], sm["steps"]),
+             f"{sm['tag']}: {kc['train']} kernel calls in {sm['steps']} steps"),
+            (kc["anchor_fit"] == (0, 0), f"{sm['tag']}: anchor fit {kc}"),
+            (kc["eval"] == kc["eval_bayes"] == (2 * n_eval, 0),
+             f"{sm['tag']}: evaluation {kc} for {n_eval} batches"),
+            (sm["counts"] == tuple(map(sum, zip(*kc.values()))),
+             f"{sm['tag']}: counts {sm['counts']} against {kc}"),
+            (sm["device"] == "cuda", f"{sm['tag']}: on the card")]
+        v = sm["values"]
+        checks.append((all(np.isfinite(v[n]).all() for n in v),
+                       f"{sm['tag']}: finite curves, parameters and metrics"))
+
+    # (i) boston, the card against the CPU on the same draws
+    vals = {k: summ[k]["values"] for k in ("gpu64", "cpu64", "gpu32", "cpu32")}
+    pairs = {"gpu64_vs_cpu64": ("gpu64", "cpu64"),
+             "gpu32_vs_cpu32": ("gpu32", "cpu32")}
+    gaps = exp_gaps(vals, pairs, list(vals["cpu64"]))
+    # the fit's and the flow's leaves relative to the largest entry of their
+    # group: the fit drives the nets' output weights towards 0 (their own
+    # largest entry is a rounding floor in fp32, 1e4 times fp64's)
+    ref = vals["cpu64"]
+    for grp in ("fit", "flow"):
+        names = [n for n in ref if id_group(n) == grp]
+        scale = max(np.abs(ref[n]).max() for n in names)
+        for n in names:
+            gaps[n] = {k: float(np.abs(vals[a][n] - vals[b][n]).max() / scale)
+                       for k, (a, b) in pairs.items()}
+    for pair, limits in (("gpu64_vs_cpu64", ID_F64_LIMITS),
+                         ("gpu32_vs_cpu32", ID_F32_LIMITS)):
+        grouped = {}
+        for n, g in gaps.items():
+            grouped[id_group(n)] = max(grouped.get(id_group(n), 0.0), g[pair])
+        for n, g in grouped.items():
+            log(f"ID_TGP boston {pair} {n:30s} {g:.3e}")
+            checks.append((n in limits and g <= limits[n],
+                           f"ID_TGP {pair} {n}: {g} (limit {limits.get(n)})"))
+        result[f"{pair}_group_gaps"] = grouped
+    result["gaps"] = gaps
+
+    # (ii) the card's own draws: within the band of the replayed run
+    def nll_rmse(sm, bayes):
+        v = sm["values"]
+        pre = "bayes/" if bayes else ""
+        return -float(v[pre + "test/logL"][0]), float(v[pre + "test/rmse"][0])
+
+    for bayes in (False, True):
+        (a, ra), (b, rb) = nll_rmse(s_native, bayes), nll_rmse(s_gpu64, bayes)
+        log(f"ID_TGP boston native vs replayed draws ({'Bayesian' if bayes else 'point'}):"
+            f" test NLL {a:.4f} / {b:.4f}, RMSE {ra:.4f} / {rb:.4f}")
+        checks.append((abs(a - b) <= ID_NATIVE_BAND["nll"]
+                       and abs(ra - rb) <= ID_NATIVE_BAND["rmse"] * rb,
+                       f"native draws off the band: NLL {a} vs {b}, RMSE "
+                       f"{ra} vs {rb}"))
+
+    # (iii) VI: the flow's KL term is part of the ELBO
+    with torch.no_grad():
+        kl_flow = float(M.flows_kld(vi.trainer.spec, vi.trainer.params))
+    log(f"ID_TGP boston VI: flow KL {kl_flow:.4e}, KL curve "
+        f"{s_vi['values']['kld'][0]:.4e} -> {s_vi['values']['kld'][-1]:.4e}")
+    checks.append((np.isfinite(kl_flow) and kl_flow > 0, f"VI flow KL {kl_flow}"))
+
+    # (iv) power: the deeper nets and the Bayesian evaluation's memory
+    log(f"ID_TGP power: peak device memory {s_power['peak_mem_gb']:.3f} GiB "
+        f"(S_MC=100 over the 8611 training rows)")
+
+    # the boston step on the card (fp64 after the run with the card's own
+    # draws, fp32 after the replayed one, both drawing on the card now): the
+    # median of 5 x 10 steps, a profile of 10; and the anchor fit's epoch
+    specs = ([1.0], [[[0.01, 1e-5, "net_"], [0.01, 0.0, "flow"]]])
+    timing = {}
+    for prec, tr in (("fp64", native.trainer), ("fp32", run32.trainer)):
+        cfg.set_precision(prec)
+        try:
+            def ten_steps():
+                tr.train(10, 0.01, "adam", optimisation_schedule=specs,
+                         verbose_each=0)
+
+            times = []
+            for _ in range(5):
+                t0 = time.perf_counter()
+                ten_steps()
+                times.append((time.perf_counter() - t0) / 10)
+            step_ms = 1e3 * float(np.median(times))
+            prof = profile_device(ten_steps)
+        finally:
+            cfg.set_precision("fp32")
+        per_step = {k: prof[k] / 10 for k in ("device_ops", "device_busy_ms",
+                                              "gram_ms", "gram_bwd_ms")}
+        timing[prec] = dict(step_ms=step_ms, steps_per_s=1e3 / step_ms,
+                            profile_per_step=per_step,
+                            profile_top_ms=prof["top_ms"])
+        log(f"ID_TGP boston {prec} step {step_ms:.3f} ms ({1e3 / step_ms:.2f} "
+            f"steps/s, median of 5 x 10); {per_step['device_ops']:.1f} device "
+            f"ops, busy {per_step['device_busy_ms']:.3f} ms = "
+            f"{per_step['device_busy_ms'] / step_ms:.1%} of a step; Gram forward "
+            f"{per_step['gram_ms'] * 1e3:.2f} us, backward "
+            f"{per_step['gram_bwd_ms'] * 1e3:.2f} us a step")
+        for name, ms in prof["top_ms"]:
+            log(f"    {ms * 1e3 / 10:9.2f} us a step  {name}")
+    tr = native.trainer
+    cfg.set_precision("fp64")
+    try:
+        fp0 = tree_map(lambda x: x[0].detach(), tr.params["flow"])
+        X = [b for b, _ in tr.train_loader]
+
+        def ten_fit_epochs():
+            fit_hypernet_to_anchors(tr.spec.flow, fp0, X, num_epochs=10)
+            torch.cuda.synchronize()
+
+        ten_fit_epochs()
+        t0 = time.perf_counter()
+        ten_fit_epochs()
+        fit_ms = 1e3 * (time.perf_counter() - t0) / 10
+        fit_prof = profile_device(ten_fit_epochs)
+    finally:
+        cfg.set_precision("fp32")
+    fit_epoch = {k: fit_prof[k] / 10 for k in ("device_ops", "device_busy_ms")}
+    log(f"ID_TGP boston anchor-fit epoch {fit_ms:.3f} ms; "
+        f"{fit_epoch['device_ops']:.1f} device ops, busy "
+        f"{fit_epoch['device_busy_ms']:.3f} ms; 2000 epochs took "
+        f"{s_native['anchor_fit_s']:.1f} s in the run")
+    result.update(
+        summaries={k: {kk: vv for kk, vv in sm.items() if kk != "values"}
+                   for k, sm in summ.items()},
+        step_timing=timing,
+        anchor_fit_epoch=dict(ms=fit_ms, profile=fit_epoch,
+                              profile_top_ms=fit_prof["top_ms"]),
+        vi_flow_kl=kl_flow, power_peak_mem_gb=s_power["peak_mem_gb"], **counts)
+    for cond, msg in checks:
+        check(cond, msg)
+    return result
+
+
+# Bayesian serving: `Predictor(fully_bayesian=True)` on power's ID_TGP at full
+# width (SAL(3), hypernets 4 -> 50 -> 50 -> 1, relu, dropout 0.25, M=100,
+# fp32), its weights random from a seed.  Moments and bands at the two
+# buckets; 1 forward launch a request.  The card's moments against the
+# CPU's with the same replayed draws: 10x the first measurement's gaps on an
+# NVIDIA H100 80GB HBM3 at 700 W, relative to the largest |value|.
+BAYES_SERVING_LIMITS = {"mean": 6.6e-3, "var": 3.2e-3}
+
+
+def bayes_serving_phase(dev):
+    from tgp.pytorch_tpu_torch import config as cfg, weights
+    from tgp.pytorch_tpu_torch.data.uci import load_uci_split
+    from tgp.pytorch_tpu_torch.experiments import flow_arch
+    from tgp.pytorch_tpu_torch.flows import hypernet as H
+    from tgp.pytorch_tpu_torch.likelihoods.gaussian import LikelihoodSpec
+    from tgp.pytorch_tpu_torch.models.tgp import TGPSpec, init_tgp_params
+    from tgp.pytorch_tpu_torch.ops import kernels, rbf_gram as R
+    from tgp.pytorch_tpu_torch.serve import Predictor
+
+    d = load_uci_split("power", 1)
+    X_tr, X_te = d["X_tr"], d["X_te"]
+    fspec, finits = flow_arch.build_id_flow("power", X_tr.shape[1])
+    spec = TGPSpec(Dy=1, Dx=4, M=100, N=float(X_tr.shape[0]),
+                   kernel=kernels.from_name("scale_rbf"),
+                   likelihood=LikelihoodSpec("gaussian_flow", 1, quad_points=100),
+                   flow=fspec)
+    params = weights.perturb_params(init_tgp_params(
+        spec, X_tr, X_tr[:100], variance_scale=1e-2,
+        kernel_init={"length_scale": 2.0, "kernel_scale": 2.0},
+        flow_inits=finits, dtype=torch.float64, device="cpu"), seed=1)
+    params = weights.tree_map(lambda t: t.float().double(), params)
+    kw = dict(Y_std=d["Y_std"], Y_mean=d["Y_mean"], buckets=(256, 4096),
+              S_MC=100, fully_bayesian=True, seed=0)
+    pred = Predictor(spec, params, device=dev, **kw)
+    X32, X4096 = X_te[:32], np.resize(X_te, (4096, X_te.shape[1]))
+    for X in (X32, X4096):                       # warm-up
+        pred.predict(X)
+
+    lat, res, per = {}, {}, []
+    # --- the main path: counts from 0, 1 launch per request --------------
+    R.LAUNCHES = R.BWD_LAUNCHES = 0
+    n_requests = 0
+    for key, X, reps, call in (
+            ("bayes_moments_n32", X32, 20, dict(quantiles=None)),
+            ("bayes_moments_n4096", X4096, 10, dict(quantiles=None)),
+            ("bayes_bands_n32", X32, 20, dict()),
+            ("bayes_bands_n4096", X4096, 10, dict())):
+        for _ in range(reps):
+            before = R.LAUNCHES
+            t0 = time.perf_counter()
+            res[key] = pred.predict(X, **call)
+            lat.setdefault(key, []).append(time.perf_counter() - t0)
+            per.append((key, R.LAUNCHES - before))
+            n_requests += 1
+    launches, bwd_launches = R.LAUNCHES, R.BWD_LAUNCHES
+    # ----------------------------------------------------------------------
+    checks = [(c == 1, f"{k}: {c} launches in one request") for k, c in per]
+    checks += [(launches == n_requests, f"{launches} launches, {n_requests} requests"),
+               (bwd_launches == 0, f"{bwd_launches} backward launches")]
+    for key, out in res.items():
+        n = 32 if key.endswith("n32") else 4096
+        for k, v in out.items():
+            checks.append((v.shape == (1, n) and np.isfinite(v).all(),
+                           f"{key} {k}: shape {v.shape}, finite"))
+        checks.append(((out["var"] > 0).all(), f"{key}: var > 0"))
+        if "lower" in out:
+            checks.append(((out["lower"] <= out["upper"]).all(),
+                           f"{key}: lower <= upper"))
+
+    # the card against the CPU (fp32), the same hypernet draws replayed
+    prev = H._draw
+    try:
+        H._draw = CpuDraws(ID_SEED)
+        gpu = pred.predict(X32, quantiles=None)
+        H._draw = CpuDraws(ID_SEED)
+        cpu = Predictor(spec, params, device="cpu", **kw).predict(
+            X32, quantiles=None)
+    finally:
+        H._draw = prev
+    gaps = {k: float(np.max(np.abs(gpu[k] - cpu[k])) / np.max(np.abs(cpu[k])))
+            for k in ("mean", "var")}
+    for k, g in gaps.items():
+        log(f"serving Bayesian {k:4s} card vs CPU fp32, replayed draws: {g:.3e}")
+        checks.append((k in BAYES_SERVING_LIMITS and g <= BAYES_SERVING_LIMITS[k],
+                       f"Bayesian serving {k}: {g} (limit "
+                       f"{BAYES_SERVING_LIMITS.get(k)})"))
+    p50 = {k: 1e3 * float(np.median(v)) for k, v in lat.items()}
+    for k, v in p50.items():
+        log(f"serving p50 {k:20s} {v:9.3f} ms  ({len(lat[k])} reps)")
+    prof = profile_device(lambda: pred.predict(X4096, quantiles=None))
+    prof["busy_share_of_p50"] = prof["device_busy_ms"] / p50["bayes_moments_n4096"]
+    log(f"profile bayes_moments_n4096: {prof['device_ops']} device ops, busy "
+        f"{prof['device_busy_ms']:.3f} ms = {prof['busy_share_of_p50']:.1%} of "
+        f"p50; Gram kernel {prof['gram_ms'] * 1e3:.2f} us")
+    for name, ms in prof["top_ms"]:
+        log(f"    {ms * 1e3:9.2f} us  {name}")
+    for cond, msg in checks:
+        check(cond, msg)
+    return dict(launches=launches, bwd_launches=bwd_launches,
+                requests=n_requests, p50_ms=p50, gaps=gaps, profile=prof)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1107,11 +1533,16 @@ def main() -> int:
 
     rows, big = kernel_phase(dev)
     serving = serving_phase(dev)
+    serving["bayes"] = bayes_serving_phase(dev)
     grad = gradient_phase(dev)
     training = training_phase(dev)
     t0 = time.perf_counter()
     experiment = experiment_phase(dev)
     log(f"experiment phase {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    idtgp = id_phase(dev)
+    log(f"ID_TGP phase {time.perf_counter() - t0:.1f} s")
+    paths = (serving, serving["bayes"], grad, training, experiment, idtgp)
 
     fp32_rows = [r for r in rows if "fp32" in r["shape"]]
     train = next(r for r in rows if r["shape"] == "pair 8611+100 fp32")
@@ -1119,17 +1550,14 @@ def main() -> int:
     record = {"kernels": [
         dict(name="rbf_gram", source="tgp/pytorch_tpu_torch/csrc/rbf_gram.cu",
              replaces="tgp/pytorch_tpu/ops/pallas/rbf_gram.py:85",
-             launches=(serving["launches"] + grad["launches"]
-                       + training["launches"] + experiment["launches"]),
+             launches=sum(p["launches"] for p in paths),
              max_abs_err=max(r["max_abs_err"] for r in fp32_rows + [big]),
              ms=train["ms"], plain_ms=train["plain_ms"],
              bound_ms=train["bound_ms"], bound_by=train["bound_by"], **common),
         dict(name="rbf_gram_bwd",
              source="tgp/pytorch_tpu_torch/csrc/rbf_gram_bwd.cu",
              replaces="tgp/pytorch_tpu/ops/pallas/rbf_gram.py:114",
-             launches=(serving["bwd_launches"] + grad["bwd_launches"]
-                       + training["bwd_launches"]
-                       + experiment["bwd_launches"]),
+             launches=sum(p["bwd_launches"] for p in paths),
              max_abs_err=max(r["bwd_max_abs_err"] for r in fp32_rows),
              ms=train["bwd_ms"], plain_ms=train["bwd_plain_ms"],
              bound_ms=train["bwd_bound_ms"], bound_by=train["bwd_bound_by"],
@@ -1141,7 +1569,8 @@ def main() -> int:
         device=name, nvidia_smi=smi, torch=torch.__version__,
         cuda=torch.version.cuda, build_s=build_s, kernel_rows=rows,
         big_gram=big, serving=serving, gradient=grad, training=training,
-        experiment=experiment, record=record), indent=1, default=_jsonable))
+        experiment=experiment, id_tgp=idtgp, record=record), indent=1,
+        default=_jsonable))
 
     log(smi)
     log(json.dumps(record))

@@ -134,8 +134,88 @@ def test_cli_matches_the_jax_cli(monkeypatch, capsys, model):
     assert res.kernel_calls == {"train": (0, 0), "eval": (0, 0)}
 
 
+# naval's run moves with the order of sums: two of its 17 inputs (columns
+# 8 and 11) are constant on the training rows, and Adam steps the
+# coordinates of Z and the lengthscales whose gradients are rounding noise
+# by about lr with the noise's sign.  The JAX CLI run again in one process
+# lands on one of a few such trajectories (its CPU reductions do not repeat
+# bit for bit), and the port on 1 thread sits on or between them.  Over
+# four JAX runs, the port on 1 and 8 threads, the largest gap between two
+# of them was, on the ELBO and ELL curves 4.3e-7, on the KL curve 7.1e-6,
+# on a logL 1.5e-6; relative to a group's largest entry, leaving out the
+# constant inputs' coordinates: Z 4.9e-6, the flow 2.0e-8, the kernel
+# 1.4e-7, the noise 7.1e-10, q_mu 2.8e-6, q_L 1.2e-4.  naval's leaves are
+# held at 10x those gaps, its curves and metrics at 12x, 8x and 6x; kin8nm
+# repeats to the last bits and is held at F64.
+NAVAL = dict(curve=dict(rtol=5.3e-6, atol=0), kld=dict(rtol=5.7e-5, atol=0),
+             metric=dict(rtol=9.1e-6, atol=0))
+NAVAL_CONSTANT_INPUTS = [8, 11]
+NAVAL_LEAVES = {"['Z']": 4.9e-5, "['flow']": 2.0e-7, "['kernel']": 1.4e-6,
+                "['likelihood']": 7.1e-9, "['q_mu']": 2.8e-5, "['q_L']": 1.2e-3}
+
+
+@pytest.mark.parametrize("dataset, arch", [("kin8nm", "inverseboxcox"),
+                                           ("naval", "sinh_arcsinh")])
+def test_cli_table_arch_minibatch_matches_the_jax_cli(monkeypatch, capsys,
+                                                      dataset, arch):
+    """A non-Step table arch (kin8nm's InverseBoxCoxL, naval's SAL_InvBCL)
+    on the minibatch path (batches of 2048 and a remainder), M=5, 3
+    epochs: the same Z0, spec, curves, parameters, metrics and line."""
+    tol = NAVAL if dataset == "naval" else dict(curve=F64, kld=F64, metric=F64)
+    argv = ["--model", "TGP", "--dataset", dataset, "--train_test_seed_split",
+            "1", "--num_inducing", "5", "--epochs", "3", "--batch_size",
+            "2048", "--platform", "cpu", "--verbose_each", "0"]
+    mj, seen = jax_run(monkeypatch, argv)
+    jline = result_line(capsys.readouterr().out)
+    torch.set_num_threads(1)
+    res = pmain.run(pmain.parse_args(argv))
+    assert result_line(capsys.readouterr().out) == jline
+    close(res.Z0, seen["Z0"])
+    jt, pt = seen["trainer"], res.trainer
+    assert len(pt.train_loader) > 2 and res.identity_fit is None
+    assert pt.spec.flow[0].kind == arch
+    assert [dataclasses.astuple(s) for s in pt.spec.flow] == \
+        [dataclasses.astuple(s) for s in jt.spec.flow]
+    for attr in ("loss_curve", "ell_curve", "kld_curve"):
+        got = np.asarray(getattr(pt, attr), np.float64)
+        want = np.asarray([float(v) for v in getattr(jt, attr)])
+        assert got.shape == want.shape == (3,)
+        close(got, want, **tol["kld" if attr == "kld_curve" else "curve"])
+    jl = jax.tree_util.tree_leaves_with_path(jt.params)
+    pl = weights.tree_leaves(pt.params)
+    assert len(jl) == len(pl)
+    if dataset != "naval":
+        for (path, a), b in zip(jl, pl):
+            close(b, a, err_msg=jax.tree_util.keystr(path), **F64)
+    else:
+        # each group of leaves relative to its largest entry, without the
+        # coordinates of the inputs that are constant on the training rows
+        X = np.asarray(pt.train_loader.dataset.X)
+        const = [j for j in range(X.shape[1]) if np.ptp(X[:, j]) == 0]
+        assert const == NAVAL_CONSTANT_INPUTS
+        vary = [j for j in range(X.shape[1]) if j not in const]
+        for group, lim in NAVAL_LEAVES.items():
+            pairs = []
+            for (path, a), b in zip(jl, pl):
+                name = jax.tree_util.keystr(path)
+                if not name.startswith(group):
+                    continue
+                a, b = np.asarray(a, np.float64), b.detach().cpu().double().numpy()
+                if name in ("['Z']", "['kernel']['child']['raw_lengthscale']"):
+                    assert a.shape[-1] == X.shape[1]
+                    a, b = a[..., vary], b[..., vary]
+                pairs.append((name, a, b))
+            assert pairs
+            top = max(np.abs(a).max() for _, a, _ in pairs)
+            for name, a, b in pairs:
+                close(b, a, err_msg=name, rtol=0, atol=lim * top)
+    for split in ("train", "test"):
+        for k in ("logL", "rmse"):
+            close(res.metrics[split][k], mj[split][k], **tol["metric"])
+
+
 @pytest.mark.parametrize("flags, item", [
-    (["--model", "ID_TGP"], "item 13"),
+    (["--model", "ID_TGP", "--mesh", "4x2"], "item 20"),
     (["--model", "WGP"], "item 16"),
     (["--model", "DGP"], "item 19"),
     (["--model", "TGP", "--precision", "bf16"], "item 20"),
@@ -159,9 +239,9 @@ def test_cli_exits_non_zero_naming_the_item():
     env = dict(os.environ, PYTHONPATH=str(REPO))
     res = subprocess.run(
         [sys.executable, "-m", "tgp.pytorch_tpu_torch.experiments.main",
-         "--model", "ID_TGP"] + ARGV, cwd=REPO, env=env, capture_output=True,
+         "--model", "WGP"] + ARGV, cwd=REPO, env=env, capture_output=True,
         text=True, timeout=300)
-    assert res.returncode != 0 and "item 13" in res.stderr
+    assert res.returncode != 0 and "item 16" in res.stderr
 
 
 def test_cli_needs_a_card_unless_asked_for_the_cpu():

@@ -290,3 +290,103 @@ def test_cli_on_the_card_matches_the_cpu_and_counts_its_launches(dev):
         for k in ("logL", "rmse"):
             assert _rel(gpu.metrics[split][k], cpu.metrics[split][k]) \
                 <= CLI_F64_LIMITS["metrics"], (split, k)
+
+
+# ---------------------------------------------------------------------------
+# input-dependent flows: the hypernets and the fully-Bayesian moments, the
+# card against the CPU on the same draws (every draw from one seeded CPU
+# generator, moved to the device)
+# ---------------------------------------------------------------------------
+
+# relative to the largest entry: fp64 1e-12 (the same float64 math, only
+# the order of the matmuls' sums differs); fp32 1e-5 for the nets (a few
+# float32 ulps through two layers) and the serving limit on the variance
+# (2.4e-3) for the moments, which go through K_zz's Cholesky
+ID_TOL = {torch.float64: (1e-12, 1e-12), torch.float32: (1e-5, 2.4e-3)}
+
+
+def _cpu_draws(monkeypatch, seed):
+    from tgp.pytorch_tpu_torch.flows import hypernet as H
+    gen = torch.Generator().manual_seed(seed)
+
+    def draw(kind, shape, p, generator, dtype, device):
+        if kind == "keep":
+            v = torch.rand(shape, generator=gen, dtype=torch.float64) < p
+        else:
+            v = torch.randn(shape, generator=gen, dtype=torch.float64).to(dtype)
+        return v.to(device)
+
+    monkeypatch.setattr(H, "_draw", draw)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("kind", ["MC_dropout", "batch_norm",
+                                  "mean_field_gaussian"])
+def test_hypernet_on_the_card_matches_the_cpu(dev, monkeypatch, dtype, kind):
+    from tgp.pytorch_tpu_torch.flows import hypernet as H
+    spec = H.HyperNetSpec(
+        in_dim=13, hidden_dim=25, num_hidden=2 if kind == "batch_norm" else 1,
+        activation="tanh", dropout=0.0 if kind == "mean_field_gaussian" else 0.5,
+        batch_norm=kind == "batch_norm",
+        inference="MC_dropout" if kind != "mean_field_gaussian" else kind)
+    g = torch.Generator().manual_seed(1)
+    nets = [H.init_hypernet(spec, g, torch.float64, "cpu") for _ in range(2)]
+    stacked = {"layers": [{k: (torch.stack([n["layers"][i][k] for n in nets])
+                               if k != "bn" else
+                               {s: torch.stack([n["layers"][i]["bn"][s]
+                                                for n in nets])
+                                for s in layer["bn"]})
+                           for k in layer}
+                          for i, layer in enumerate(nets[0]["layers"])]}
+    X = torch.randn(2, 455, 13, generator=g, dtype=torch.float64)
+    outs = []
+    for device in (dev, "cpu"):
+        _cpu_draws(monkeypatch, 2)
+        p = weights.tree_map(lambda t: t.to(device, dtype), stacked)
+        outs.append(H.apply_hypernet(spec, p, X.to(device, dtype),
+                                     rng=torch.Generator(device=device),
+                                     train=kind == "batch_norm",
+                                     draws=(4, 1)))
+    assert outs[0].shape == (4, 1, 2, 455)
+    tol = ID_TOL[dtype][0]
+    assert _rel(outs[0], outs[1]) <= tol
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_bayesian_moments_on_the_card_match_the_cpu(dev, monkeypatch, dtype):
+    from tgp.pytorch_tpu_torch.experiments import flow_arch
+    from tgp.pytorch_tpu_torch.likelihoods.gaussian import LikelihoodSpec
+    from tgp.pytorch_tpu_torch.models import tgp as M
+    from tgp.pytorch_tpu_torch.ops import kernels
+
+    rng = np.random.RandomState(0)
+    X, Y = rng.randn(455, 13), rng.randn(455, 1)
+    fspec, finits = flow_arch.build_id_flow("boston", 13)
+    spec = M.TGPSpec(Dy=1, Dx=13, M=100, N=455.0,
+                     kernel=kernels.from_name("scale_rbf"),
+                     likelihood=LikelihoodSpec("gaussian_flow", 1), flow=fspec)
+    params = weights.perturb_params(M.init_tgp_params(
+        spec, X, X[:100], variance_scale=1e-2, flow_inits=finits,
+        kernel_init={"length_scale": 2.0, "kernel_scale": 2.0},
+        dtype=torch.float64, device="cpu"), seed=3)
+    outs = []
+    for device in (dev, "cpu"):
+        _cpu_draws(monkeypatch, 4)
+        p = weights.tree_map(lambda t: t.to(device, dtype), params)
+        Xd, Yd = (torch.as_tensor(a, dtype=dtype, device=device) for a in (X, Y))
+        gen = torch.Generator(device=device)
+        before = R.LAUNCHES
+        with torch.no_grad():
+            m1, m2, _, _ = M.predictive_distribution(
+                spec, p, Xd, S_MC=16, fully_bayesian=True, rng=gen)
+            lp = M.test_log_likelihood(spec, p, Xd, Yd, torch.ones(1, dtype=dtype,
+                                                                  device=device),
+                                       S_MC=16, fully_bayesian=True, rng=gen,
+                                       reduce=False)
+        if device == dev:
+            assert R.LAUNCHES == before + 2     # one marginal_qf each
+        outs.append((m1, m2, lp))
+    tol = ID_TOL[dtype][1]
+    for a, b in zip(*outs):
+        assert a.shape == b.shape and torch.isfinite(a).all()
+        assert _rel(a, b) <= tol

@@ -391,12 +391,28 @@ def test_generator_lists_equal_jax(case):
 
 
 def test_input_dependent_generators_refuse():
-    for gen in (lambda: pG.SAL(1, input_dependent=True, input_dim=3),
-                lambda: pG.StepTanhL(1, 2, input_dependent=True, input_dim=3)):
-        with pytest.raises(NotImplementedError, match="item 13"):
-            gen()
-    with pytest.raises(NotImplementedError, match="item 13"):
-        PFA.build_id_flow("boston", 13)
+    """The input-dependent generators and the ID arch of every table row
+    now build the JAX package's lists and specs (they refused before the
+    hypernets were ported); only an input-dependent flow without input_dim
+    is refused."""
+    for call in (lambda G: G.SAL(2, input_dependent=True, input_dim=3,
+                                 dropout=0.5, hidden_activation="tanh"),
+                 lambda G: G.StepTanhL(1, 2, input_dependent=True, input_dim=3,
+                                       inference="mean_field_gaussian")):
+        np.random.seed(3)
+        want = call(jG)
+        np.random.seed(3)
+        assert call(pG) == want
+    for table, is_class in ((JEC.ID_TGP_REGRESSION_SWEEP, False),
+                            (JEC.ID_TGP_CLASSIFICATION_SWEEP, True)):
+        for ds in table:
+            for inf in ("MC_dropout", "mean_field_gaussian"):
+                js, _ = JFA.build_id_flow(ds, 7, is_class, inf)
+                ps, _ = PFA.build_id_flow(ds, 7, is_class, inf)
+                assert [dataclasses.astuple(s) for s in ps] == \
+                    [dataclasses.astuple(s) for s in js]
+    with pytest.raises(ValueError, match="input_dim"):
+        pG.SAL(1, input_dependent=True)
 
 
 def test_experiment_tables_equal_jax():

@@ -170,11 +170,20 @@ def test_unported_spec_parts_raise(change, item):
 
 
 def test_unported_flows_and_likelihoods_raise():
-    fl = jG.SAL(1, input_dependent=True, input_dim=3)
-    with pytest.raises(NotImplementedError, match="item 13"):
-        p_spec_from_list(fl)
-    with pytest.raises(NotImplementedError, match="item 13"):
-        p_spec_from_list(jG.StepTanhL(1, 2, input_dependent=True, input_dim=3))
+    # input-dependent flows are ported: their specs are the JAX package's,
+    # hypernet specs included, also through spec_to_dict / spec_from_dict
+    for fl in (jG.SAL(1, input_dependent=True, input_dim=3),
+               jG.StepTanhL(1, 2, input_dependent=True, input_dim=3,
+                            inference="mean_field_gaussian")):
+        js, _ = j_spec_from_list(fl)
+        ps, _ = p_spec_from_list(fl)
+        assert [dataclasses.astuple(x) for x in ps] == \
+            [dataclasses.astuple(x) for x in js]
+        spec_j = JM.TGPSpec(Dy=1, Dx=3, M=4, N=10.0,
+                            kernel=jK.from_name("scale_rbf"),
+                            likelihood=JLik("gaussian_flow", 1), flow=js)
+        spec_p = weights.spec_from_dict(jser.spec_to_dict(spec_j))
+        assert spec_p.flow == ps and spec_p.has_input_dependent_flow
     with pytest.raises(ValueError, match="unknown flow kind"):
         p_spec_from_list([("no_such_flow", {})])
     spec_j, *_ = build("sal2")

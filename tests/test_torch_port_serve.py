@@ -152,8 +152,58 @@ def test_bad_requests_raise(model):
         pred.predict(np.zeros((65, 3)))
     with pytest.raises(ValueError, match="quantiles"):
         pred.predict(Xq[:3], quantiles=(0.1, 0.5, 0.9))
-    with pytest.raises(NotImplementedError, match="item 13"):
-        Predictor(spec_p, pp, device="cpu", fully_bayesian=True)
+    # fully_bayesian is ported: on a flow that draws nothing it answers as
+    # the point predictor does
+    fb = Predictor(spec_p, pp, device="cpu", fully_bayesian=True, **KW)
+    pt = Predictor(spec_p, pp, device="cpu", **KW)
+    a, b = (p.predict(Xq[:5], quantiles=None) for p in (fb, pt))
+    for k in ("mean", "var"):
+        np.testing.assert_array_equal(a[k], b[k])
+
+
+@pytest.mark.parametrize("name", ["sal_mc", "sal_vi"])
+def test_fully_bayesian_predictor_matches_jax(monkeypatch, name):
+    """`Predictor(fully_bayesian=True)` on an ID TGP (Dy=2) against the JAX
+    Predictor: moments and log-densities with the JAX Predictor's hypernet
+    draws replayed to the port (`test_torch_port_hypernet.JaxOrderReplay`);
+    with the port's own draws, samples and bands within their Monte Carlo
+    error of the mixture."""
+    from test_torch_port_hypernet import JaxOrderReplay, id_model
+
+    spec_j, spec_p, pj, pp, X, Y, _ = id_model(name)
+    kw = dict(Y_std=[2.0, 0.5], Y_mean=[1.0, -1.0], buckets=(16, 64), S_MC=8,
+              fully_bayesian=True)
+    replay = JaxOrderReplay().patch(monkeypatch)
+    pj_ = JPredictor(spec_j, pj, **kw)
+    pp_ = Predictor(spec_p, pp, device="cpu", **kw)
+
+    def jax_then_port(call):
+        out_j = call(pj_)
+        replay.seal()
+        return out_j, call(pp_)
+
+    oj, op = jax_then_port(lambda p: p.predict(X[:10], quantiles=None))
+    for k in ("mean", "var"):
+        assert op[k].shape == (2, 10)
+        np.testing.assert_allclose(op[k], oj[k], **F64)
+    lj, lp = jax_then_port(lambda p: p.log_prob(X[:10], Y[:10]))
+    np.testing.assert_allclose(lp, lj, **F64)
+    assert replay.queue == [] and replay.sites > 0
+    monkeypatch.undo()              # the port's own draws from here on
+    if name != "sal_mc":
+        # the VI nets' samples are heavy-tailed at this init; they are held
+        # exactly against JAX's with replayed draws in
+        # test_torch_port_hypernet
+        return
+    # samples, one flow draw each, around the mixture of as many draws
+    S = 4000
+    out = pp_.predict(X[:10], samples=S)
+    mix = Predictor(spec_p, pp, device="cpu", **dict(kw, S_MC=S)).predict(
+        X[:10], quantiles=None)
+    s = out["samples"]
+    assert s.shape == (2, S, 10)
+    assert np.all(np.abs(s.mean(1) - mix["mean"]) <= 4 * np.sqrt(2 * s.var(1) / S))
+    assert np.all(out["lower"] < out["upper"])
 
 
 # ---------------------------------------------------------------------------

@@ -16,7 +16,12 @@ between them as numpy arrays (`weights.params_to_numpy`,
     relative, 4.7e-13 absolute on parameters of order 1, 1.1e-15
     relative), rounded up to a power of ten, and tighter than rtol 1e-7,
     atol 1e-9.  Coverage comes from other random streams than JAX's, so it
-    is held within 3 binomial standard errors.
+    is held within 3 binomial standard errors;
+  * the input-dependent options (a fully-Bayesian evaluation, a flow with
+    batch-norm hypernets trained 6 steps), with the JAX package's masks
+    replayed: rtol 1e-8, atol 1e-10; the batch-norm flow's parameters at
+    atol 2.7e-8 (10x the measured gap: the biases that feed batch norm have
+    a gradient of rounding noise beside their weight decay).
 """
 
 import dataclasses
@@ -32,7 +37,7 @@ from tgp.pytorch_tpu.data.batching import ArrayDataset as JDataset, \
 from tgp.pytorch_tpu.flows import generators as jG, spec_from_list as j_spec_from_list
 from tgp.pytorch_tpu.likelihoods import LikelihoodSpec as JLik
 from tgp.pytorch_tpu.likelihoods import gaussian as jgauss
-from tgp.pytorch_tpu.models import tgp as JM
+from tgp.pytorch_tpu.models import serialization as jser, tgp as JM
 from tgp.pytorch_tpu.ops import kernels as jK
 from tgp.pytorch_tpu.ops import linalg as jlinalg
 from tgp.pytorch_tpu.train import Trainer as JTrainer
@@ -55,6 +60,7 @@ F64 = dict(rtol=1e-8, atol=1e-10)
 CURVES = dict(rtol=1e-13, atol=0)
 PARAMS = dict(rtol=0, atol=1e-11)
 METRICS = dict(rtol=1e-13, atol=0)
+BN_TRAIN = dict(rtol=1e-8, atol=2.7e-8)
 M_SMALL, N_SMALL, Q_SMALL = 16, 512, 20
 
 
@@ -468,6 +474,91 @@ def test_trainer_default_device_raises_without_cuda():
                 d["Y_std"])
 
 
+def _id_trainers(**flow_kw):
+    """The port's and the JAX Trainer on 200 power rows with an
+    input-dependent SAL(1) flow (hypernets 4 -> 5 -> 1), M=8, 10 GH nodes,
+    from the JAX package's init; the test split's first 300 rows."""
+    loaders, d = return_dataset("power", 10000, seed=1)
+    X, Y = d["X_tr"][:200], d["Y_tr"][:200]
+    Xte, Yte = loaders[-1].dataset.X[:300], loaders[-1].dataset.Y[:300]
+    fspec, finits = j_spec_from_list(jG.SAL(1, input_dependent=True,
+                                            input_dim=4, hidden_dim=5,
+                                            **flow_kw))
+    spec_j = JM.TGPSpec(Dy=1, Dx=4, M=8, N=200.0,
+                        kernel=jK.from_name("scale_rbf"),
+                        likelihood=JLik("gaussian_flow", 1, quad_points=10),
+                        flow=fspec)
+    pj = JM.init_tgp_params(spec_j, X, X[:8], flow_inits=finits,
+                            kernel_init={"length_scale": 2.0, "kernel_scale": 2.0},
+                            dtype=jnp.float64)
+    pn = jax.tree_util.tree_map(np.asarray, pj)
+    spec_p = weights.spec_from_dict(jser.spec_to_dict(spec_j))
+    tr_p = Trainer(spec_p, weights.params_from_jax(pn, device="cpu"),
+                   [DataLoader(ArrayDataset(X, Y), 10000, seed=3),
+                    DataLoader(ArrayDataset(Xte, Yte), 10000, shuffle=False)],
+                   d["Y_std"], S_test=20, seed=0, device="cpu")
+    tr_j = JTrainer(spec_j, jax.tree_util.tree_map(jnp.asarray, pn),
+                    [JLoader(JDataset(X, Y), 10000, seed=3),
+                     JLoader(JDataset(Xte, Yte), 10000, shuffle=False)],
+                    d["Y_std"], S_test=20, seed=0)
+    return tr_p, tr_j
+
+
+def _id_option_matches_jax(option, monkeypatch):
+    """The two input-dependent options, ported: a fully-Bayesian evaluation
+    (S_MC = S_test = 20 MC-dropout draws) and the training of a flow with
+    batch-norm hypernets (6 full-batch steps, the nets at weight decay 1e-5,
+    then the statistics recalibrated), against the JAX Trainer, the JAX
+    Trainer's masks replayed to the port in program order
+    (`test_torch_port_hypernet.JaxOrderReplay`)."""
+    from test_torch_port_hypernet import JaxOrderReplay
+
+    if option == "fully_bayesian":
+        tr_p, tr_j = _id_trainers(dropout=0.3, hidden_activation="tanh")
+    else:
+        tr_p, tr_j = _id_trainers(dropout=0.3, batch_norm=1,
+                                  num_hidden_layers=2)
+    replay = JaxOrderReplay().patch(monkeypatch)
+    # on the real ID tree the anchors and the BN statistics are frozen
+    fp, fj = (weights.tree_leaves(f(tr.spec, tr.params)) for f, tr in
+              ((frozen_param_labels, tr_p), (j_frozen, tr_j)))
+    assert fp == [bool(x) for x in fj] and sum(fp) == (10 if option == "bn_flow"
+                                                     else 2)
+    if option == "bn_flow":
+        specs = ([1.0], [[[0.01, 1e-5, "net_"], [0.01, 0.0, "flow"]]])
+        bn0 = tr_p.params["flow"][0]["net_a"]["layers"][0]["bn"]["var"].clone()
+        for tr in (tr_j, tr_p):         # JAX first: the port replays its masks
+            tr.train(6, 0.01, "adam", optimisation_schedule=specs,
+                     verbose_each=0)
+            replay.seal()
+        for curve in ("loss_curve", "ell_curve", "kld_curve"):
+            np.testing.assert_allclose(np.asarray(getattr(tr_p, curve)),
+                                       np.asarray(getattr(tr_j, curve)), **F64)
+        # A bias that feeds batch norm has a gradient of 0 but for rounding,
+        # beside its weight decay's 1e-5 * b: Adam turns the rounding into
+        # steps of lr * 1e-8 or so, which the batch means follow and the
+        # rest of the model picks up (Z and q_L to 1.9e-9).  Every leaf is
+        # held at 10x the largest measured gap, 2.7e-9.
+        paths = weights.tree_leaves(popt.param_paths(tr_p.params))
+        for path, a, b in zip(paths, weights.tree_leaves(tr_p.params),
+                              weights.tree_leaves(tr_j.params)):
+            close(a, b, err_msg=path, **BN_TRAIN)
+        bn = tr_p.params["flow"][0]["net_a"]["layers"][0]["bn"]
+        assert not torch.equal(bn["var"], bn0) and bn["var"].requires_grad
+    tr_p.fully_bayesian = tr_j.fully_bayesian = option == "fully_bayesian"
+    mj = tr_j.compute_metrics()
+    replay.seal()
+    mp = tr_p.compute_metrics()
+    for split in ("train", "test"):
+        for k in ("logL", "rmse"):
+            np.testing.assert_allclose(mp[split][k], mj[split][k], **F64)
+    # every draw replayed: a site a net and layer in each program (bn_flow:
+    # the training step's 2 x 2; fully_bayesian: 3 passes x 2 nets for each
+    # of the two loaders' programs)
+    assert replay.queue == []
+    assert replay.sites == (4 if option == "bn_flow" else 12)
+
+
 @pytest.mark.parametrize("option, item", [
     ("natgrad_gamma", "item 19"), ("natgrad_warmup", "item 19"),
     ("lbfgs", "item 19"), ("mesh", "item 20"), ("save", "item 20"),
@@ -476,7 +567,10 @@ def test_trainer_default_device_raises_without_cuda():
     ("fully_bayesian", "item 13"), ("bn_flow", "item 13"),
     ("classification", "item 16"), ("track_fn", "item 21"),
     ("large_dataset", "item 21"), ("dataset", "item 20")])
-def test_unported_options_raise_and_name_their_item(option, item):
+def test_unported_options_raise_and_name_their_item(option, item, monkeypatch):
+    if option in ("fully_bayesian", "bn_flow"):
+        # item 13 is ported: these two now hold the result against JAX
+        return _id_option_matches_jax(option, monkeypatch)
     with pytest.raises(NotImplementedError, match=item):
         if option in ("natgrad_gamma", "natgrad_warmup"):
             _small_trainer().train(2, 0.01, **{option: 1})
@@ -498,16 +592,6 @@ def test_unported_options_raise_and_name_their_item(option, item):
             tr = _small_trainer()
             tr.spec = dataclasses.replace(tr.spec, remat=True)
             tr.train(2, 0.01)
-        elif option == "fully_bayesian":
-            tr = _small_trainer()
-            tr.fully_bayesian = True
-            tr.compute_metrics()
-        elif option == "bn_flow":
-            # an input-dependent step (MC-dropout or batch-norm hypernet)
-            spec = weights.flagship_spec(40, M=4, quad=8)
-            step = dataclasses.replace(spec.flow[0], input_dependent=True)
-            Trainer(dataclasses.replace(spec, flow=(step,) + spec.flow[1:]),
-                    {}, [], [1.0], device="cpu")
         elif option == "classification":
             spec = weights.flagship_spec(40, M=4, quad=8)
             Trainer(dataclasses.replace(spec, likelihood=pgauss.LikelihoodSpec(

@@ -64,6 +64,16 @@ def build_point_flow(arch: str, nb: int):
 
 def build_id_flow(dataset: str, Dx: int, is_class: bool = False,
                   inference: str = "MC_dropout"):
-    """The ID_TGP hypernet arch: not ported yet."""
-    raise NotImplementedError("input-dependent flows (ID_TGP) are not ported "
-                              "yet (ROADMAP Queue 1 item 13)")
+    """(flow_spec, flow_inits) for the ID_TGP hypernet arch of `dataset`
+    (the ID sweep table: blocks, activation, hidden layers, dropout, batch
+    norm, width).  inference='mean_field_gaussian' swaps the MC-dropout nets
+    for VI nets, with dropout 0."""
+    table = (EC.ID_TGP_CLASSIFICATION_SWEEP if is_class
+             else EC.ID_TGP_REGRESSION_SWEEP)
+    nb, act, nh, dr, bn, width = table[dataset]
+    if inference == "mean_field_gaussian":
+        dr = 0.0
+    return spec_from_list(G.SAL(
+        nb, input_dependent=True, input_dim=Dx, hidden_activation=act,
+        num_hidden_layers=nh, dropout=dr, batch_norm=bn, hidden_dim=width,
+        inference=inference))

@@ -1,14 +1,19 @@
-"""The experiment CLI of the port, for SVGP and TGP:
+"""The experiment CLI of the port, for SVGP, TGP and ID_TGP:
 
-    python -m tgp.pytorch_tpu_torch.experiments.main --model {SVGP,TGP} \\
-        --dataset <name> --train_test_seed_split S --num_inducing M \\
-        [--epochs E] [--precision fp64|fp32] [--platform gpu|cpu]
+    python -m tgp.pytorch_tpu_torch.experiments.main \\
+        --model {SVGP,TGP,ID_TGP} --dataset <name> \\
+        --train_test_seed_split S --num_inducing M [--epochs E] \\
+        [--precision fp64|fp32] [--platform gpu|cpu] \\
+        [--nnet_inference MC_dropout|mean_field_gaussian]
 
 It takes the flags of the repo's `experiments/main.py` (the JAX package's
-CLI) and does what that CLI does for these two models: the UCI split,
-k-means inducing points, the dataset's flow architecture from the paper's
-tables (Step* archs fitted to the identity first), the same model and init,
-Adam for --epochs at --lr, then the test metrics and the same result line.
+CLI) and does what that CLI does for these models: the UCI split, k-means
+inducing points, the dataset's flow architecture from the paper's tables
+(Step* archs fitted to the identity first; ID_TGP's SAL blocks with
+hypernets fitted to their identity anchors), the same model and init, Adam
+for --epochs at --lr (ID_TGP: the nets at weight decay 1e-5), then the test
+metrics and the same result line; ID_TGP prints a second, `BAYESIAN FLOW`
+line for the fully-Bayesian evaluation (S_test hypernet draws).
 Defaults are the paper's: batch 10000, 15000 epochs, lr 0.01, noise 0.05,
 lengthscale and output scale 2, q(U) variance 1e-5, whitened, fp64 with 100
 quadrature points, S_test 100.
@@ -33,8 +38,8 @@ def parse_args(argv=None):
     p = argparse.ArgumentParser(description="TGP on the GPU (PyTorch port)")
     p.add_argument("--model", required=True,
                    choices=["SVGP", "TGP", "ID_TGP", "WGP", "DGP"],
-                   help="SVGP and TGP are ported; ID_TGP, WGP and DGP exit "
-                        "naming their ROADMAP item")
+                   help="SVGP, TGP and ID_TGP are ported; WGP and DGP "
+                        "exit naming their ROADMAP item")
     p.add_argument("--layers", type=int, default=2, help="DGP depth")
     p.add_argument("--dgp_flow", action="store_true")
     p.add_argument("--S_train", type=int, default=1)
@@ -50,7 +55,9 @@ def parse_args(argv=None):
     p.add_argument("--precision", default="fp64",
                    choices=["fp64", "fp32", "bf16"])
     p.add_argument("--nnet_inference", default=None,
-                   choices=[None, "MC_dropout", "mean_field_gaussian"])
+                   choices=[None, "MC_dropout", "mean_field_gaussian"],
+                   help="ID_TGP's hypernet inference (default: the table's "
+                        "MC_dropout; mean_field_gaussian sets dropout to 0)")
     p.add_argument("--rng_impl", default="threefry2x32",
                    choices=["threefry2x32", "rbg"])
     p.add_argument("--platform", default="gpu", choices=["gpu", "cpu"],
@@ -59,7 +66,8 @@ def parse_args(argv=None):
     p.add_argument("--verbose_each", type=int, default=100)
     p.add_argument("--checkpoint_dir", default=None)
     p.add_argument("--train_seed", type=int, default=0,
-                   help="seed of the evaluation samples' generator")
+                   help="seed of the Trainer's generator (dropout masks, VI "
+                        "noise, evaluation samples)")
     p.add_argument("--fast_solves", action="store_true")
     p.add_argument("--solve_precision", default="highest",
                    choices=["highest", "high", "default"])
@@ -77,8 +85,6 @@ def refusal(args):
     """The message for a model or option the port lacks, naming its
     ROADMAP Queue 1 item, or None."""
     todo = {
-        "ID_TGP": "--model ID_TGP (input-dependent flows) is not ported yet "
-                  "(ROADMAP Queue 1 item 13)",
         "WGP": "--model WGP (the warped likelihood) is not ported yet "
                "(ROADMAP Queue 1 item 16)",
         "DGP": "--model DGP (deep GPs) is not ported yet (ROADMAP Queue 1 "
@@ -117,9 +123,18 @@ class Run:
     identity_fit: tuple | None
     train_s: float
     line: str
-    #: Gram kernel calls while training and while evaluating, each
-    #: (forward launches, backward calls), read from `ops.rbf_gram`
+    #: Gram kernel calls while training and while evaluating ("eval"; for
+    #: ID_TGP also "eval_bayes", the fully-Bayesian evaluation, and
+    #: "anchor_fit"), each (forward launches, backward calls), read from
+    #: `ops.rbf_gram`
     kernel_calls: dict
+    #: ID_TGP's hypernet fit to the anchors: (output 0's fitted flow
+    #: params, the loss of its last step), and its seconds
+    anchor_fit: tuple | None = None
+    anchor_fit_s: float = 0.0
+    #: ID_TGP's fully-Bayesian metrics and result line
+    metrics_bayes: dict | None = None
+    line_bayes: str | None = None
 
 
 def run(args) -> Run:
@@ -129,8 +144,10 @@ def run(args) -> Run:
 
     from .. import config as cfg
     from ..data import kmeans_centers, return_dataset
-    from ..flows.core import IDENTITY_SPEC
-    from ..flows.initializers import fit_flow_to_identity
+    from ..flows import generators as G
+    from ..flows.core import IDENTITY_SPEC, spec_from_list
+    from ..flows.initializers import (fit_flow_to_identity,
+                                      fit_hypernet_to_anchors)
     from ..likelihoods.gaussian import LikelihoodSpec
     from ..models import tgp as M
     from ..ops import kernels as K, rbf_gram as R
@@ -158,8 +175,24 @@ def run(args) -> Run:
 
     # ---- flow architecture -------------------------------------------------
     hp = return_hyperparams(args.model, args.dataset)
+    if args.nnet_inference and args.model == "ID_TGP":
+        hp["flow_inference"] = args.nnet_inference
+        if args.nnet_inference == "mean_field_gaussian":
+            hp["flow_DR"] = 0.0             # VI nets have no dropout
     flow_spec, flow_inits, fit = IDENTITY_SPEC, None, None
-    if args.model == "TGP":
+    if args.model == "ID_TGP":
+        flow_kwargs = dict(
+            input_dependent=True, input_dim=Dx,
+            num_hidden_layers=hp["flow_num_hidden_layers"],
+            batch_norm=hp["flow_BN"], dropout=hp["flow_DR"],
+            hidden_dim=hp["flow_hidden_dim"],
+            hidden_activation=hp["flow_hidden_act"],
+            inference=hp["flow_inference"])
+        np.random.seed(cfg.config_seed)
+        flow_spec, flow_inits = spec_from_list(G.SAL(
+            hp["num_blocks"],
+            **{k: v for k, v in flow_kwargs.items() if v is not None}))
+    elif args.model == "TGP":
         arch, nb, ns = hp["flow_arch"], hp["num_blocks"], hp["num_steps"]
         if FA.is_step_arch(arch):
             print("==== running identity-fit flow initializer ====", flush=True)
@@ -190,31 +223,68 @@ def run(args) -> Run:
     if fit is not None:
         params["flow"] = tree_map(lambda x: torch.stack([x] * Dy), fit[1])
 
+    # ---- ID_TGP: the hypernets fitted to their anchors -----------------------
+    anchor_fit, anchor_s, specs = None, 0.0, None
+    if args.model == "ID_TGP":
+        print("==== fitting hypernets to identity anchors (2000 epochs) ====",
+              flush=True)
+        t0, fit_calls = time.time(), (R.LAUNCHES, R.BWD_LAUNCHES)
+        batches = [b for b, _ in loaders[0]]
+        fp0 = tree_map(lambda x: x[0], params["flow"])   # outputs equal at init
+        anchor_fit = fit_hypernet_to_anchors(flow_spec, fp0, batches,
+                                             num_epochs=2000, noise_var=0.0)
+        anchor_s = time.time() - t0
+        fit_calls = tuple(b - a for a, b in zip(fit_calls, (R.LAUNCHES,
+                                                            R.BWD_LAUNCHES)))
+        params["flow"] = tree_map(lambda x: torch.stack([x] * Dy),
+                                  anchor_fit[0])
+        print(f"hypernet init loss {anchor_fit[1]:.3e}", flush=True)
+        specs = [[args.lr, 1e-5, "net_"], [args.lr, 0.0, "flow"]]
+
     # ---- train and evaluate --------------------------------------------------
     trainer = Trainer(spec, params, loaders, dc["Y_std"], S_test=args.S_test,
                       seed=args.train_seed, device=device)
     calls0 = (R.LAUNCHES, R.BWD_LAUNCHES)
     t0 = time.time()
     trainer.train(args.epochs, args.lr, "adam",
-                  optimisation_schedule=([1.0], [None]),
+                  optimisation_schedule=([1.0], [specs]),
                   verbose_each=args.verbose_each)
     train_time = time.time() - t0
-    calls1 = (R.LAUNCHES, R.BWD_LAUNCHES)
+    calls = [(R.LAUNCHES, R.BWD_LAUNCHES)]
     m = trainer.compute_metrics()
-    calls2 = (R.LAUNCHES, R.BWD_LAUNCHES)
+    calls.append((R.LAUNCHES, R.BWD_LAUNCHES))
 
     test = m["test"]
     print("\n=====================================")
     print("== Results obtained after training ==")
     print("=====================================")
-    line = (f"Dataset {args.dataset}, M {args.num_inducing}, {args.model}, "
+    tag = "POINT ESTIMATE FLOW" if args.model == "ID_TGP" else args.model
+    line = (f"Dataset {args.dataset}, M {args.num_inducing}, {tag}, "
             f"Test NLL {-test['logL'][0]:.3f}, Test RMSE {test['rmse'][0]:.3f} "
             f"({train_time:.1f}s train)")
     print(line, flush=True)
+    m_ba = line_ba = None
+    if args.model == "ID_TGP":
+        trainer.fully_bayesian = True
+        m_ba = trainer.compute_metrics()
+        calls.append((R.LAUNCHES, R.BWD_LAUNCHES))
+        test = m_ba["test"]
+        line_ba = (f"Dataset {args.dataset}, M {args.num_inducing}, "
+                   f"BAYESIAN FLOW, Test NLL {-test['logL'][0]:.3f}, "
+                   f"Test RMSE {test['rmse'][0]:.3f}")
+        print(line_ba, flush=True)
+
+    def diff(i):
+        return tuple(b - a for a, b in zip(calls[i], calls[i + 1]))
+
+    kernel_calls = {"train": tuple(b - a for a, b in zip(calls0, calls[0])),
+                    "eval": diff(0)}
+    if m_ba is not None:
+        kernel_calls.update(eval_bayes=diff(1), anchor_fit=fit_calls)
     return Run(metrics=m, trainer=trainer, Z0=Z0, identity_fit=fit,
-               train_s=train_time, line=line, kernel_calls={
-                   "train": tuple(b - a for a, b in zip(calls0, calls1)),
-                   "eval": tuple(b - a for a, b in zip(calls1, calls2))})
+               train_s=train_time, line=line, kernel_calls=kernel_calls,
+               anchor_fit=anchor_fit, anchor_fit_s=anchor_s,
+               metrics_bayes=m_ba, line_bayes=line_ba)
 
 
 if __name__ == "__main__":

@@ -1,5 +1,5 @@
-"""Marginal normalizing flows as pure functions: the point-estimate part of
-the JAX package's `flows/core.py`.
+"""Marginal normalizing flows as pure functions: the port of the JAX
+package's `flows/core.py`.
 
 A flow is a static spec (a tuple of `FlowStep` dataclasses) plus a list of
 per-step parameter dicts aligned with it.  Every point-estimate kind is
@@ -13,8 +13,9 @@ Parameters may carry leading axes (the model stacks one flow per output):
 a scalar parameter of shape (Dy, 1) broadcasts against f (..., Dy, MB), and
 `log_exp`'s per-term vectors keep their terms on the last axis.
 
-Input-dependent (hypernet) steps raise NotImplementedError until ROADMAP
-Queue 1 item 13.
+`sinh_arcsinh` and `tanh` also take input-dependent parameters: hypernets
+of X (MC-dropout or mean-field-Gaussian VI, `hypernet.py`) give one value
+per row, which broadcasts against f (..., Dy, MB) over the quadrature axis.
 """
 
 from __future__ import annotations
@@ -28,9 +29,8 @@ import torch
 from .. import config as cfg
 from ..ops.transforms import (inv_softplus, safe_exp, safe_sinh, safe_tanh,
                               softplus)
-
-_TODO_HYPER = ("input-dependent flows are not ported yet "
-               "(ROADMAP Queue 1 item 13)")
+from .hypernet import (HyperNetSpec, apply_hypernet, finalize_bn_stats,
+                       hypernet_kld, init_hypernet)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -39,7 +39,7 @@ class FlowStep:
     set_restrictions: bool = False
     add_init_f0: bool = False
     input_dependent: bool = False
-    hypernet: Optional[object] = None
+    hypernet: Optional[HyperNetSpec] = None
     constraint: str = "none"          # boxcox: 'none' | 'sigmoid2' | 'sigmoid_ref'
     learnable: bool = True            # normalCDF
     n_terms: int = 1                  # log_exp number of terms
@@ -50,14 +50,19 @@ class FlowStep:
 class FlowCtx:
     """Runtime context threaded through flow evaluation.
 
-    The point-estimate path uses no randomness; `rng` (a torch.Generator)
-    and `stochastic` are kept for the input-dependent flows to come.
+    `rng` (a torch.Generator on the tensors' device) feeds the hypernets'
+    dropout masks and VI noise while `stochastic` is True (training and
+    fully-Bayesian evaluation; False is the point estimate).  `mean_only`
+    takes the hypernets' deterministic path; `train` puts their batch norm
+    in batch-statistics mode.  `draws` is the leading shape of independent
+    draws: the hypernets' outputs get shape draws + X.shape[:-1].
     """
 
     rng: Optional[torch.Generator] = None
     stochastic: bool = True
     mean_only: bool = False
     train: bool = False
+    draws: Tuple[int, ...] = ()
 
 
 # parameter names per kind (point-estimate path)
@@ -83,13 +88,39 @@ _SCALAR_PARAMS = {
     "identity": (),
 }
 
-#: kinds that the JAX package lets take hypernet (input-dependent) parameters
+#: kinds that take hypernet (input-dependent) parameters
 _HYPER_CAPABLE = ("sinh_arcsinh", "tanh")
+
+
+def _hyper_names(step: FlowStep):
+    """The parameters that an input-dependent step's hypernets give."""
+    return ("a", "b", "c", "d") if step.kind == "tanh" else ("a", "b")
 
 
 # ===========================================================================
 # Spec construction from the generators' list-of-(name, kwargs) format
 # ===========================================================================
+
+def _hyper_spec_from_kwargs(kw: dict, kind: str) -> Optional[HyperNetSpec]:
+    if not kw.get("input_dependent", False):
+        return None
+    idc = kw.get("input_dependent_config", {}) or {}
+    in_dim = int(kw["input_dim"])
+    # the VI prior variance by flow family: 0.5/1e-5 for the 4-parameter
+    # tanh flow (a Gaussian prior equivalent to weight decay 1e-5), 1.0 for
+    # sinh-arcsinh; unused under MC dropout
+    prior_var = 0.5 / 1e-5 if kind == "tanh" else 1.0
+    return HyperNetSpec(
+        in_dim=in_dim,
+        hidden_dim=int(idc.get("hidden_dim", in_dim)),
+        num_hidden=int(idc.get("num_hidden_layers", 1)),
+        activation=idc.get("hidden_activation", "relu"),
+        dropout=float(idc.get("dropout", 0.0)),
+        batch_norm=bool(idc.get("batch_norm", 0)),
+        inference=idc.get("inference", "MC_dropout"),
+        prior_var=prior_var,
+    )
+
 
 def spec_from_list(flow_list) -> Tuple[Tuple[FlowStep, ...], list]:
     """Convert the generators' `[('name', init_kwargs), ...]` lists into
@@ -116,15 +147,16 @@ def spec_from_list(flow_list) -> Tuple[Tuple[FlowStep, ...], list]:
                           "b": np.asarray(kw["init_b"], dtype=np.float64).reshape(-1),
                           "c": np.asarray(kw["init_c"], dtype=np.float64).reshape(-1)})
             continue
-        if name in _HYPER_CAPABLE and kw.get("input_dependent", False):
-            raise NotImplementedError(_TODO_HYPER)
         add_f0 = bool(kw.get("add_init_f0", False))
         set_res = bool(kw.get("set_restrictions", False)) or add_f0
+        hyper = (_hyper_spec_from_kwargs(kw, name)
+                 if name in _HYPER_CAPABLE else None)
         constraint = "none"
         if (name in ("boxcox", "inverseboxcox")
                 and kw.get("constraint") not in (None, "none")):
             constraint = str(kw["constraint"])
         steps.append(FlowStep(name, set_restrictions=set_res, add_init_f0=add_f0,
+                              input_dependent=hyper is not None, hypernet=hyper,
                               constraint=constraint,
                               learnable=bool(kw.get("is_learnable", True))))
         init_vals = {}
@@ -144,10 +176,13 @@ IDENTITY_SPEC: Tuple[FlowStep, ...] = (FlowStep("identity"),)
 
 
 def check_step(step: FlowStep) -> None:
-    """Raise for a step this port cannot evaluate: NotImplementedError for
-    an input-dependent step, ValueError for an unknown kind."""
-    if step.input_dependent or step.hypernet is not None:
-        raise NotImplementedError(_TODO_HYPER)
+    """Raise ValueError for a step that cannot be evaluated: an unknown
+    kind, or an input-dependent step of a kind without hypernets or with
+    no hypernet spec."""
+    if step.input_dependent and (step.kind not in _HYPER_CAPABLE
+                                 or step.hypernet is None):
+        raise ValueError(f"{step.kind!r} step cannot be input-dependent "
+                         f"(hypernet {step.hypernet})")
     if step.kind == "step_flow":
         for s in step.sub:
             check_step(s)
@@ -180,14 +215,24 @@ _GATED = ("boxcox", "inverseboxcox", "sinh_arcsinh")
 
 
 def init_flow_params(spec: Tuple[FlowStep, ...], inits=None, dtype=None,
-                     device=None):
+                     device=None, generator=None):
     """Parameter list (one dict per step) for `spec`, with the JAX
     package's defaults: 0-d tensors, `log_exp`'s (n_terms,) vectors, and
     for a step_flow {"sub": [member params], "gates": [...]} where a
     boxcox, inverseboxcox or sinh_arcsinh member gets the gate
-    {a: inv_softplus(1/K), b: 0} and every other member {}."""
+    {a: inv_softplus(1/K), b: 0} and every other member {}.
+
+    An input-dependent step also gets its hypernets ("net_a", "net_b", and
+    for tanh "net_c", "net_d"), drawn in that order from the CPU generator
+    `generator` (None: one seeded with `config.config_seed`); its scalar
+    parameters stay as the anchors that the hypernet initializer fits the
+    nets to, frozen in training.  The JAX package draws the nets from
+    threefry keys, which torch cannot reproduce: `weights.params_from_jax`
+    loads a JAX init."""
     dtype = dtype or cfg.default_dtype()
     device = cfg.resolve_device(device)
+    if generator is None:
+        generator = torch.Generator().manual_seed(cfg.config_seed)
 
     def t(v):
         return torch.tensor(np.asarray(v, dtype=np.float64), dtype=dtype,
@@ -201,7 +246,7 @@ def init_flow_params(spec: Tuple[FlowStep, ...], inits=None, dtype=None,
             gate_a = float(np.log(np.expm1(1.0 / len(step.sub))))
             params.append({
                 "sub": init_flow_params(step.sub, ivals.get("sub"), dtype,
-                                        device),
+                                        device, generator),
                 "gates": [{"a": t(gate_a), "b": t(0.0)} if s.kind in _GATED
                           else {} for s in step.sub]})
             continue
@@ -209,8 +254,13 @@ def init_flow_params(spec: Tuple[FlowStep, ...], inits=None, dtype=None,
         if step.kind == "log_exp":
             defaults = {"a": np.ones(step.n_terms), "b": np.ones(step.n_terms),
                         "c": np.zeros(step.n_terms)}
-        params.append({pname: t(ivals.get(pname, defaults[pname]))
-                       for pname in _SCALAR_PARAMS[step.kind]})
+        p = {pname: t(ivals.get(pname, defaults[pname]))
+             for pname in _SCALAR_PARAMS[step.kind]}
+        if step.input_dependent:
+            for n in _hyper_names(step):
+                p[f"net_{n}"] = init_hypernet(step.hypernet, generator, dtype,
+                                              device)
+        params.append(p)
     return params
 
 
@@ -237,12 +287,57 @@ def _boxcox_lam(step: FlowStep, lam):
     return torch.where(lam == 0.0, lam + 1e-11, lam)
 
 
+def _rewind(ctx: FlowCtx, steps):
+    """A function that puts the generator `ctx.rng` back to its present
+    state, where `steps` hold a stochastic hypernet (else a no-op).
+
+    The JAX package hands every member of a step_flow, and every step of
+    the hypernet initializer's loss, the same key, so their nets draw the
+    same masks (for equal shapes); rewinding the generator before each one
+    does the same here."""
+    def drawing(s):
+        return (s.input_dependent and (s.hypernet.dropout > 0.0 or
+                                       s.hypernet.inference != "MC_dropout")
+                or any(drawing(m) for m in s.sub))
+    if ctx.rng is None or not ctx.stochastic or not any(map(drawing, steps)):
+        return lambda: None
+    state = ctx.rng.get_state()
+    return lambda: ctx.rng.set_state(state)
+
+
+def _hyper_params(step: FlowStep, params, X, ctx: FlowCtx, names):
+    """The step's hypernets evaluated on X: one tensor per name, of shape
+    X.shape[:-1] (draws + X.shape[:-1] while drawing)."""
+    return [apply_hypernet(step.hypernet, params[f"net_{n}"], X, rng=ctx.rng,
+                           stochastic=ctx.stochastic, mean_only=ctx.mean_only,
+                           train=ctx.train, draws=ctx.draws)
+            for n in names]
+
+
+def finalize_bn(spec: Tuple[FlowStep, ...], params, X):
+    """Recalibrate the batch-norm statistics of every hypernet of the flow
+    from a deterministic pass over X (`hypernet.finalize_bn_stats`).
+    Returns a new params list; a no-op for flows without BN hypernets."""
+    out = []
+    for step, p in zip(spec, params):
+        if step.kind == "step_flow":
+            out.append(dict(p, sub=finalize_bn(step.sub, p["sub"], X)))
+            continue
+        if step.input_dependent and step.hypernet.batch_norm:
+            p = dict(p)
+            for n in _hyper_names(step):
+                p[f"net_{n}"] = finalize_bn_stats(step.hypernet,
+                                                  p[f"net_{n}"], X)
+        out.append(p)
+    return out
+
+
 def step_forward(step: FlowStep, params, f, X=None, ctx: FlowCtx = FlowCtx()):
     """Apply one flow step elementwise to f (any shape broadcastable with
-    the step's parameters)."""
+    the step's parameters).  An input-dependent step evaluates its
+    hypernets on X (..., MB, Dx), whose per-row values broadcast against
+    f's trailing axes."""
     k = step.kind
-    if step.input_dependent:
-        raise NotImplementedError(_TODO_HYPER)
     if k == "identity":
         return f
     if k == "exp":
@@ -259,17 +354,23 @@ def step_forward(step: FlowStep, params, f, X=None, ctx: FlowCtx = FlowCtx()):
     if k == "translation":
         return f + params["b"]
     if k in ("sinh_arcsinh", "inverse_sinh_arcsinh"):
-        a = params["a"]
-        b = _maybe_pos(params["b"], step.set_restrictions)
+        if step.input_dependent and k == "sinh_arcsinh":
+            a, b = _hyper_params(step, params, X, ctx, ("a", "b"))
+        else:
+            a, b = params["a"], params["b"]
+        b = _maybe_pos(b, step.set_restrictions)
         if k == "sinh_arcsinh":
             fk = safe_sinh(b * torch.asinh(f) - a)
         else:
             fk = safe_sinh((torch.asinh(f) + a) / b)
         return fk + f if step.add_init_f0 else fk
     if k in ("arcsinh", "inverse_arcsinh", "sinh", "tanh"):
-        a, c = params["a"], params["c"]
-        b = _maybe_pos(params["b"], step.set_restrictions)
-        d = _maybe_pos(params["d"], step.set_restrictions)
+        if step.input_dependent and k == "tanh":
+            a, b, c, d = _hyper_params(step, params, X, ctx, ("a", "b", "c", "d"))
+        else:
+            a, b, c, d = params["a"], params["b"], params["c"], params["d"]
+        b = _maybe_pos(b, step.set_restrictions)
+        d = _maybe_pos(d, step.set_restrictions)
         if k == "arcsinh":
             fk = a + b * torch.asinh((f - c) / d)
         elif k == "inverse_arcsinh":
@@ -322,7 +423,9 @@ def step_forward(step: FlowStep, params, f, X=None, ctx: FlowCtx = FlowCtx()):
         return res
     if k == "step_flow":
         fk = 0.0
+        rewind = _rewind(ctx, step.sub)
         for sub_step, sub_p, gate in zip(step.sub, params["sub"], params["gates"]):
+            rewind()
             g = step_forward(sub_step, sub_p, f, X, ctx)
             if gate:
                 fk = fk + softplus(gate["a"]) * g + gate["b"]
@@ -336,7 +439,8 @@ def step_forward(step: FlowStep, params, f, X=None, ctx: FlowCtx = FlowCtx()):
 
 def flow_forward(spec: Tuple[FlowStep, ...], params, f, X=None,
                  ctx: FlowCtx = FlowCtx()):
-    """Composite forward: apply each step in sequence."""
+    """Composite forward: apply each step in sequence (the hypernets of
+    every step draw from the one generator `ctx.rng`, in step order)."""
     for step, p in zip(spec, params):
         f = step_forward(step, p, f, X, ctx)
     return f
@@ -412,7 +516,8 @@ def newton_inverse(fwd, target, init=None, iters: int = 100,
 
 
 def step_inverse(step: FlowStep, params, f, iters: int = 100):
-    if step.kind in _ANALYTIC_INVERSE and not step.add_init_f0:
+    if (step.kind in _ANALYTIC_INVERSE and not step.add_init_f0
+            and not step.input_dependent):
         return _step_inverse_analytic(step, params, f)
     return newton_inverse(lambda x: step_forward(step, params, x), f, iters=iters)
 
@@ -425,8 +530,47 @@ def flow_inverse(spec: Tuple[FlowStep, ...], params, f, iters: int = 100):
 
 
 def flow_kld(spec: Tuple[FlowStep, ...], params):
-    """Sum of the steps' KL terms: zero for point-estimate steps (the VI
-    hypernets that have one wait for item 13)."""
-    for step in spec:
+    """Sum of the steps' KL terms: non-zero only for VI hypernets (over
+    every output of stacked per-output params)."""
+    total = torch.zeros((), dtype=cfg.default_dtype())
+    for step, p in zip(spec, params):
         check_step(step)
-    return torch.zeros((), dtype=cfg.default_dtype())
+        if step.kind == "step_flow":
+            total = total + flow_kld(step.sub, p["sub"])
+        elif (step.input_dependent
+              and step.hypernet.inference == "mean_field_gaussian"):
+            for n in _hyper_names(step):
+                total = total + hypernet_kld(step.hypernet, p[f"net_{n}"])
+    return total
+
+
+def flow_forward_initializer(spec: Tuple[FlowStep, ...], params, X,
+                             ctx: FlowCtx = FlowCtx()):
+    """The hypernet initializer's loss: the sum over input-dependent steps
+    and their nets of mean((net(X) - anchor)^2), with the anchor (the
+    step's scalar parameter) held constant.
+
+    Both inference modes fit through the stochastic forward (dropout on,
+    VI weights sampled): the sampled pass is what drives the VI logvars
+    down from their variance-1 init before the ELBO sees them.  Every
+    input-dependent step starts from the same generator state (see
+    `_rewind`).
+    """
+    sctx = dataclasses.replace(ctx, stochastic=True, mean_only=False)
+    rewind = _rewind(sctx, spec)
+
+    def walk(steps, ps):
+        loss = torch.zeros((), dtype=X.dtype, device=X.device)
+        for step, p in zip(steps, ps):
+            if step.kind == "step_flow":
+                loss = loss + walk(step.sub, p["sub"])
+                continue
+            if not step.input_dependent:
+                continue
+            rewind()
+            names = _hyper_names(step)
+            for n, out in zip(names, _hyper_params(step, p, X, sctx, names)):
+                loss = loss + torch.mean(torch.square(out - p[n].detach()))
+        return loss
+
+    return walk(spec, params)

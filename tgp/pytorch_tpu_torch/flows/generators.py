@@ -13,8 +13,8 @@ Spec builders returning `[('name', init_kwargs), ...]` lists consumed by
 
 Randomized inits draw numpy's global RNG in exactly the JAX package's
 order, so a seeded run starts from the same point in both packages.
-Input-dependent flows (input_dependent=True) raise NotImplementedError until
-ROADMAP Queue 1 item 13.
+SAL and StepTanhL take input-dependent steps (input_dependent=True with
+input_dim and the hypernet options), as the JAX package's do.
 """
 
 from __future__ import annotations
@@ -31,16 +31,17 @@ def _common(options):
 
 def _input_dependent(options):
     """The hypernet fields that SAL and StepTanhL write into their steps:
-    (False, input_dim, config) for a point-estimate flow."""
-    if options.get("input_dependent", False):
-        raise NotImplementedError("input-dependent flows are not ported yet "
-                                  "(ROADMAP Queue 1 item 13)")
+    (input_dependent, input_dim, config)."""
+    input_dependent = bool(options.get("input_dependent", False))
+    input_dim = options.get("input_dim", -1)
+    if input_dependent and not input_dim > 0:
+        raise ValueError("input-dependent flows need input_dim > 0")
     idc = {}
     for k in ("batch_norm", "dropout", "hidden_dim", "hidden_activation",
               "num_hidden_layers", "inference"):
         if k in options:
             idc[k] = options[k]
-    return False, options.get("input_dim", -1), idc
+    return input_dependent, input_dim, idc
 
 
 def SAL(num_blocks, **kwargs):

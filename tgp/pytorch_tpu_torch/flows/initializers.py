@@ -1,16 +1,17 @@
-"""Flow initializers (before training): the point-estimate part of the JAX
-package's `flows/initializers.py`.
+"""Flow initializers (before training): the port of the JAX package's
+`flows/initializers.py`.
 
   * `fit_flow_to_identity`: fit T(x) ~= x over a linspace of the output
     range by MSE with Adam, over random restarts; NaN restarts are dropped;
+  * `fit_hypernet_to_anchors`: fit input-dependent steps' hypernets to
+    their anchor values (the identity flow) over the training inputs;
   * `gaussianize`: minimise the cross-entropy of the data under the flow's
     push-forward of N(0, 1), by SGD with momentum;
   * `step_flow_ladder`: a ladder-shaped step_flow of tanh steps.
 
-Both fits are eager loops whose optimizers do optax's arithmetic (the JAX
+The fits are eager loops whose optimizers do optax's arithmetic (the JAX
 package runs them as `lax.scan` over optax steps), so a seeded fit follows
-the JAX trajectory.  `fit_hypernet_to_anchors` waits for the hypernets
-(ROADMAP Queue 1 item 13).
+the JAX trajectory where it draws no random numbers.
 """
 
 from __future__ import annotations
@@ -23,7 +24,8 @@ import torch
 
 from .. import config as cfg
 from ..weights import tree_leaves, tree_map
-from .core import flow_forward, init_flow_params, spec_from_list
+from .core import (FlowCtx, flow_forward, flow_forward_initializer,
+                   init_flow_params, spec_from_list)
 
 
 def _adam_step(params, grads, mu, nu, count, lr, b1=0.9, b2=0.999, eps=1e-8):
@@ -87,6 +89,51 @@ def fit_flow_to_identity(flow_list_fn: Callable[[], list], y_min: float,
     if best is None:
         raise RuntimeError("flow identity initializer: all restarts went NaN")
     return best
+
+
+def fit_hypernet_to_anchors(spec, params, batches, *, num_epochs: int = 2000,
+                            lr: float = 0.01, noise_var: float = 0.0,
+                            seed: int = 0):
+    """Fit the flow's hypernets so that each net(X) matches its anchor (the
+    step's scalar parameter): minimise `flow_forward_initializer`, the sum
+    over nets of mean((net(X) - anchor)^2), with optax.adam(lr) over every
+    leaf of `params` (the anchors get no gradient and do not move), one
+    step per batch for num_epochs.  Dropout is on and VI weights are
+    sampled, from a generator on the params' device seeded from `seed`
+    (through numpy's SeedSequence, so that it is not the stream of a
+    Trainer's generator seeded with the same number: the JAX package's fit
+    and Trainer draw from unrelated keys too); noise_var > 0 adds
+    N(0, noise_var) noise to each batch.
+
+    `params` is one flow's params (not stacked per output) and is not
+    changed; `batches` is a list of (rows, Dx) arrays.  Returns (the fitted
+    params, the loss of the last step before its update).
+    """
+    params = tree_map(lambda t: t.detach().clone().requires_grad_(True), params)
+    leaves = tree_leaves(params)
+    dtype, device = leaves[0].dtype, leaves[0].device
+    gen = torch.Generator(device=device).manual_seed(int(
+        np.random.SeedSequence((int(seed), 1)).generate_state(1, np.uint64)[0]))
+    ctx = FlowCtx(rng=gen, stochastic=True)
+    Xs = [torch.as_tensor(np.asarray(b), dtype=dtype).to(device)
+          for b in batches]
+    mu = [torch.zeros_like(t) for t in leaves]
+    nu = [torch.zeros_like(t) for t in leaves]
+    loss, count = None, 0
+    for _ in range(num_epochs):
+        for X in Xs:
+            if noise_var > 0.0:
+                X = X + math.sqrt(noise_var) * torch.randn(
+                    X.shape, generator=gen, dtype=dtype, device=device)
+            loss = flow_forward_initializer(spec, params, X, ctx)
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True,
+                                        materialize_grads=True)
+            count += 1
+            with torch.no_grad():
+                _adam_step(leaves, list(grads), mu, nu, count, lr)
+    for t in leaves:
+        t.requires_grad_(False)
+    return params, float(loss.detach()) if loss is not None else 0.0
 
 
 def gaussianize(spec, params, y, *, num_epochs: int = 100, lr: float = 0.001,

@@ -13,11 +13,13 @@ Whitened path (the one ported):
 with L = chol(K_zz + jitter I), S = tril(Lq) tril(Lq)^T, and only the
 diagonal of the covariance materialised.
 
-Every point-estimate flow kind is ported, step_flow and log_exp included.
+Every flow kind is ported, step_flow, log_exp and the input-dependent
+(hypernet) steps included, with the VI hypernets' KL term in the ELBO and
+fully-Bayesian prediction: S_MC hypernet draws on one leading axis, one
+`marginal_qf` for all of them.
 Not ported yet: whiten=False, full covariances, fast_solves, solve_precision
-levers and per-output flow architectures (item 18), input-dependent flows,
-their KL terms and fully-Bayesian prediction (item 13), and `spec.remat`
-(item 21).
+levers and per-output flow architectures (item 18), and `spec.remat` (item
+21).
 """
 
 from __future__ import annotations
@@ -36,10 +38,13 @@ from ..ops.linalg import (kl_whitened, safe_cholesky, tril_solve, triu_solve,
                           tril_mask)
 from ..ops.quadrature import GaussHermite
 from ..flows.core import (
+    FlowCtx,
     FlowStep,
     IDENTITY_SPEC,
     check_step,
+    finalize_bn,
     flow_forward,
+    flow_kld,
     init_flow_params,
     is_identity_spec,
 )
@@ -56,8 +61,6 @@ from ..likelihoods.gaussian import (
 from .means import check_mean, mean_init, mean_apply
 
 _TODO_QF = "is not ported yet (ROADMAP Queue 1 item 18)"
-_TODO_BAYES = ("fully-Bayesian (MC-dropout) prediction is not ported yet "
-               "(ROADMAP Queue 1 item 13)")
 
 
 # ===========================================================================
@@ -97,6 +100,32 @@ class TGPSpec:
     @property
     def has_flow(self) -> bool:
         return not is_identity_spec(self.flow)
+
+    def _any_step(self, pred) -> bool:
+        def walk(steps):
+            return any(pred(s) or walk(s.sub) for s in steps)
+        flows = (self.flow_per_output if self.flow_per_output is not None
+                 else (self.flow,))
+        return any(walk(f) for f in flows)
+
+    @property
+    def has_input_dependent_flow(self) -> bool:
+        return self._any_step(lambda s: s.input_dependent)
+
+    @property
+    def has_bn_flow(self) -> bool:
+        """True if a hypernet has batch-norm layers, whose stored statistics
+        `finalize_batch_norm` sets after training."""
+        return self._any_step(lambda s: s.input_dependent
+                              and s.hypernet.batch_norm)
+
+    @property
+    def has_stochastic_flow(self) -> bool:
+        """True if evaluating the flow draws random numbers: MC dropout
+        above 0, or VI nets (MC dropout at 0 is deterministic)."""
+        return self._any_step(lambda s: s.input_dependent and (
+            s.hypernet.dropout > 0.0
+            or s.hypernet.inference == "mean_field_gaussian"))
 
 
 def check_spec(spec: TGPSpec) -> None:
@@ -156,6 +185,8 @@ def init_tgp_params(
     """Build the full TGP parameter tree, with the JAX package's defaults.
 
     `init_Z` is an (M, Dx) array; `X_train` is unused by the zero mean.
+    The flows' hypernets (one set per output) draw from one CPU generator
+    seeded with `config.config_seed`.
     """
     check_spec(spec)
     dtype = dtype or cfg.default_dtype()
@@ -187,6 +218,7 @@ def init_tgp_params(
     mparams = mean_init(spec.mean, nm, Dx)
     lparams = init_likelihood_params(spec.likelihood, noise_init, dtype, device)
 
+    gen = torch.Generator().manual_seed(cfg.config_seed)
     if spec.has_flow and not spec.flow_is_shared:
         per_out = []
         for d in range(Dy):
@@ -194,11 +226,12 @@ def init_tgp_params(
             if (isinstance(flow_inits, (list, tuple)) and len(flow_inits) == Dy
                     and isinstance(flow_inits[0], list)):
                 inits_d = flow_inits[d]
-            per_out.append(init_flow_params(spec.flow, inits_d, dtype, device))
+            per_out.append(init_flow_params(spec.flow, inits_d, dtype, device,
+                                            gen))
         fparams = _stack_leaves(per_out)
     else:
         fparams = init_flow_params(spec.flow, flow_inits if spec.has_flow
-                                   else None, dtype, device)
+                                   else None, dtype, device, gen)
 
     return {"Z": Z, "q_mu": q_mu, "q_L": q_L, "kernel": kparams,
             "mean": mparams, "flow": fparams, "likelihood": lparams}
@@ -278,55 +311,96 @@ def _warp_clip(f):
 
 
 def _per_output(tree):
-    """Stacked per-output flow parameters, every leaf (Dy, *rest), as
-    (Dy, 1, *rest): a scalar's (Dy, 1) broadcasts against the trailing
-    (Dy, MB) axes of f, and a `log_exp` vector keeps its terms on the last
-    axis.  Walks step_flow's nested {"sub", "gates"} trees."""
+    """Stacked per-output flow parameters, every scalar or `log_exp` leaf
+    (Dy, *rest), as (Dy, 1, *rest): a scalar's (Dy, 1) broadcasts against
+    the trailing (Dy, MB) axes of f, and a `log_exp` vector keeps its terms
+    on the last axis.  Walks step_flow's nested {"sub", "gates"} trees.
+    Hypernets ("net_*") stay as they are: `apply_hypernet` takes stacked
+    nets against X3 (Dy, MB, Dx)."""
     if isinstance(tree, dict):
-        return {k: _per_output(v) for k, v in tree.items()}
+        return {k: v if k.startswith("net_") else _per_output(v)
+                for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
         return [_per_output(v) for v in tree]
     return tree.unsqueeze(1)
 
 
-def _make_warp(spec: TGPSpec, params):
-    """Build warp: f (S, Dy, MB) -> (S, Dy, MB), point-estimate flows.
+def _make_warp(spec: TGPSpec, params, X3=None, rng=None,
+               stochastic: bool = False, train: bool = False, draws=()):
+    """Build warp: f (S, Dy, MB) -> (S, Dy, MB).
 
     The JAX package vmaps the flow over Dy; here the per-output axis of the
-    stacked parameters broadcasts against f (`_per_output`).  A shared flow
-    uses its parameters as they are.
+    stacked parameters broadcasts against f (`_per_output`), and the
+    hypernets of input-dependent steps read X3 (Dy, MB, Dx).  While
+    `stochastic`, they draw dropout masks or VI noise from the generator
+    `rng` (one mask per output and row, shared by every quadrature node);
+    `draws` adds leading axes of independent draws to the hypernets'
+    outputs, and so to the warped values' shape.  A shared flow uses its
+    parameters as they are.
     """
     if not spec.has_flow:
         return lambda f: f
     fp = params["flow"]
     if not spec.flow_is_shared:
         fp = _per_output(fp)
+    ctx = FlowCtx(rng=rng, stochastic=stochastic, train=train,
+                  draws=tuple(draws))
 
     def warp(f):
-        return _warp_clip(flow_forward(spec.flow, fp, f))
+        return _warp_clip(flow_forward(spec.flow, fp, f, X3, ctx))
 
     return warp
 
 
+def _bayes_warp(spec: TGPSpec, params, X3, rng, S_MC: int):
+    """The flow under S_MC independent hypernet draws, as one batched pass:
+    f (Q, Dy, MB) -> (Q, S_MC, Dy, MB)."""
+    warp = _make_warp(spec, params, X3, rng, stochastic=True,
+                      draws=(S_MC, 1))
+    return lambda f: warp(f).transpose(0, 1)
+
+
 def flows_kld(spec: TGPSpec, params):
-    """Sum of the flows' KL terms: zero for the point-estimate flows, the
-    only kind `check_spec` admits (VI hypernets wait for item 13)."""
+    """Sum of the flows' KL terms: non-zero only for VI hypernets, summed
+    over the outputs."""
     check_spec(spec)
     ref = params["q_mu"]
-    return torch.zeros((), dtype=ref.dtype, device=ref.device)
+    zero = torch.zeros((), dtype=ref.dtype, device=ref.device)
+    if not spec._any_step(lambda s: s.input_dependent and
+                          s.hypernet.inference == "mean_field_gaussian"):
+        return zero
+    return zero + flow_kld(spec.flow, params["flow"])
+
+
+def finalize_batch_norm(spec: TGPSpec, params, X):
+    """Recalibrate every hypernet's batch-norm statistics from a
+    deterministic pass over the training inputs X (N, Dx), per output;
+    returns the params with the new statistics.  The Trainer calls it after
+    training; it returns `params` itself when no hypernet has batch norm."""
+    if not spec.has_bn_flow:
+        return params
+    fp = params["flow"]
+    ref = params["q_mu"]
+    X3 = _ensure_3d(spec, torch.as_tensor(X, dtype=ref.dtype, device=ref.device))
+    if spec.flow_is_shared:
+        new_fp = finalize_bn(spec.flow, fp, X3[0])
+    else:
+        new_fp = finalize_bn(spec.flow, fp, X3)
+    return dict(params, flow=new_fp)
 
 
 # ===========================================================================
 # ELBO
 # ===========================================================================
 
-def elbo(spec: TGPSpec, params, X, Y):
+def elbo(spec: TGPSpec, params, X, Y, rng=None):
     """Evidence lower bound for one minibatch:
         ELBO = N/MB * ELL - KL(q(U)||p(U)) - KL_flows.
 
     X is (MB, Dx) and Y (MB, Dy).  One `marginal_qf` call, so one launch of
-    the Gram kernel when the tensors lie on the card.  The ported flows are
-    point estimates, which draw no random numbers, so no generator enters.
+    the Gram kernel when the tensors lie on the card.  `rng` (a
+    torch.Generator on the tensors' device) is required when the flow is
+    stochastic (dropout or VI hypernets, in training mode).
     Returns (elbo, ell, kld), all 0-d tensors (maximise the elbo).
     """
     if spec.remat:
@@ -344,8 +418,8 @@ def elbo(spec: TGPSpec, params, X, Y):
     if lik.kind == "gaussian":
         ell = torch.sum(gaussian_ell(lik, lp, Y.T, mu, var))
     else:                               # gaussian_flow (check_spec's filter)
-        ell = torch.sum(gaussian_flow_ell(lik, lp, Y.T, mu, var,
-                                          _make_warp(spec, params)))
+        warp = _make_warp(spec, params, X3, rng, stochastic=True, train=True)
+        ell = torch.sum(gaussian_flow_ell(lik, lp, Y.T, mu, var, warp))
     ell = spec.N / MB * ell
     total_kl = kl + kl_flow
     return ell - total_kl, ell, total_kl
@@ -355,16 +429,17 @@ def elbo(spec: TGPSpec, params, X, Y):
 # Prediction / evaluation
 # ===========================================================================
 
-def predictive_distribution(spec: TGPSpec, params, X, *,
-                            fully_bayesian: bool = False, qf=None):
+def predictive_distribution(spec: TGPSpec, params, X, *, S_MC: int = 1,
+                            fully_bayesian: bool = False, rng=None, qf=None):
     """Moments (m1, m2) of p(y*|x*) plus the latent q(f) moments.
 
-    `qf`, when given, is a (mu, var) pair already computed by `marginal_qf`
-    on the same X, so a caller that also samples computes it once.
+    With `fully_bayesian` and a stochastic flow, the moments are those of
+    the mixture over S_MC hypernet draws from the generator `rng`:
+    m1 = mean(m_s), m2 = mean(C_s + m_s^2) - m1^2.  `qf`, when given, is a
+    (mu, var) pair already computed by `marginal_qf` on the same X, so a
+    caller that also samples computes it once.
     Returns (m1, m2, mu_f, var_f).
     """
-    if fully_bayesian:
-        raise NotImplementedError(_TODO_BAYES)
     X3 = _ensure_3d(spec, X)
     mu, var = qf if qf is not None else marginal_qf(spec, params, X3)
     lik = spec.likelihood
@@ -372,21 +447,29 @@ def predictive_distribution(spec: TGPSpec, params, X, *,
     check_likelihood(lik)
     if lik.kind == "gaussian":
         m1, m2 = gaussian_moments(lik, lp, mu, var)
+    elif fully_bayesian and spec.has_stochastic_flow:
+        if rng is None:
+            raise ValueError("fully-Bayesian prediction requires an rng")
+        m_Y, C_Y = gaussian_flow_moments(
+            lik, lp, mu, var, _bayes_warp(spec, params, X3, rng, S_MC))
+        m1 = torch.mean(m_Y, dim=0)
+        m2 = torch.mean(C_Y + torch.square(m_Y), dim=0) - torch.square(m1)
     else:
         m1, m2 = gaussian_flow_moments(lik, lp, mu, var,
-                                       _make_warp(spec, params))
+                                       _make_warp(spec, params, X3))
     return m1, m2, mu, var
 
 
-def test_log_likelihood(spec: TGPSpec, params, X, Y, Y_std, *,
-                        fully_bayesian: bool = False, reduce: bool = True):
+def test_log_likelihood(spec: TGPSpec, params, X, Y, Y_std, *, S_MC: int = 1,
+                        fully_bayesian: bool = False, rng=None,
+                        reduce: bool = True):
     """log p(Y*|X*) per output, shape (Dy,) (or (Dy, MB) with reduce=False),
-    by Gauss-Hermite quadrature; densities rescaled by Y_std (Dy,).
+    by Gauss-Hermite quadrature; densities rescaled by Y_std (Dy,).  With
+    `fully_bayesian` and a stochastic flow, a log-mean-exp over S_MC
+    hypernet draws from `rng` follows the quadrature's log-sum-exp.
 
     Y is (MB, Dy).
     """
-    if fully_bayesian:
-        raise NotImplementedError(_TODO_BAYES)
     MB = X.shape[-2]
     X3 = _ensure_3d(spec, X)
     lik = spec.likelihood
@@ -405,12 +488,22 @@ def test_log_likelihood(spec: TGPSpec, params, X, Y, Y_std, *,
     f = gh.shifted_locations(mu, var)                     # (S, Dy, MB)
     C_y = noise_variance(lik, lp)                         # (Dy, 1)
     log_w = torch.log(gh.weights(mu.dtype, mu.device))
-    warped = _make_warp(spec, params)(f)
+    bayes = fully_bayesian and spec.has_stochastic_flow
+    if bayes:
+        if rng is None:
+            raise ValueError("Bayesian test LL requires an rng")
+        warped = _bayes_warp(spec, params, X3, rng, S_MC)(f)  # (S, S_MC, Dy, MB)
+    else:
+        warped = _make_warp(spec, params, X3)(f)
     scale2 = torch.square(Ys) * C_y
-    lp_s = -0.5 * (torch.log(2 * math.pi * scale2)[None]
-                   + torch.square(Ys[None] * Y.T[None] - Ys[None] * warped)
-                   / scale2[None])
-    red = torch.logsumexp(log_w[:, None, None] + lp_s, dim=0)
+    lp_s = -0.5 * (torch.log(2 * math.pi * scale2)
+                   + torch.square(Ys * Y.T - Ys * warped) / scale2)
+    log_w = log_w.reshape((-1,) + (1,) * (lp_s.ndim - 1))
+    red = torch.logsumexp(log_w + lp_s, dim=0)
+    if bayes:
+        red = torch.logsumexp(red - 0.5 * math.log(math.pi), dim=0) \
+            - math.log(S_MC)
+        return torch.sum(red, dim=-1) if reduce else red
     if not reduce:
         return red - 0.5 * math.log(math.pi)
     return torch.sum(red, dim=-1) - 0.5 * MB * math.log(math.pi)
@@ -424,11 +517,10 @@ def sample_marginal(spec: TGPSpec, params, X, S: int, rng: torch.Generator,
                     fully_bayesian: bool = False, qf=None):
     """S reparameterized samples from the warped marginal q(f_K).
 
-    Draws come from the torch.Generator `rng` (on the tensors' device).
-    Returns (fk, mu, var, f0): fk, f0 (S, Dy, MB).
+    Draws come from the torch.Generator `rng` (on the tensors' device); with
+    `fully_bayesian` and a stochastic flow, each sample takes its own
+    hypernet draw.  Returns (fk, mu, var, f0): fk, f0 (S, Dy, MB).
     """
-    if fully_bayesian:
-        raise NotImplementedError(_TODO_BAYES)
     X3 = _ensure_3d(spec, X)
     mu, var = qf if qf is not None else marginal_qf(spec, params, X3)
     eps = torch.randn((S,) + tuple(mu.shape), generator=rng, dtype=mu.dtype,
@@ -436,8 +528,11 @@ def sample_marginal(spec: TGPSpec, params, X, S: int, rng: torch.Generator,
     f0 = mu[None] + torch.sqrt(var)[None] * eps
     if not spec.has_flow:
         return f0, mu, var, f0
-    fk = _make_warp(spec, params)(f0)
-    return fk, mu, var, f0
+    if fully_bayesian and spec.has_stochastic_flow:
+        warp = _make_warp(spec, params, X3, rng, stochastic=True, draws=(S,))
+    else:
+        warp = _make_warp(spec, params, X3)
+    return warp(f0), mu, var, f0
 
 
 def sample_predictive(spec: TGPSpec, params, X, S: int, rng: torch.Generator,

@@ -45,17 +45,17 @@ class Predictor:
       Y_std, Y_mean: de-normalisation of the regressed variable (outputs are
         returned in the original data scale).
       buckets: allowed padded batch sizes.
-      fully_bayesian: MC-dropout flow marginalisation; raises until
-        ROADMAP Queue 1 item 13 ports it.
+      S_MC, fully_bayesian: with fully_bayesian, the moments marginalise
+        the flow's hypernets over S_MC draws and every sample takes its own
+        draw (MC-dropout or VI posterior of an input-dependent flow), from
+        the request's generator; still one `marginal_qf` per request.
       seed: base of the per-request random streams.
       device: where requests run; None means the card (raises without one).
     """
 
     def __init__(self, spec: TGPSpec, params, Y_std=1.0, Y_mean=0.0,
-                 buckets=(256, 4096), fully_bayesian: bool = False,
-                 seed: int = 0, device=None):
-        if fully_bayesian:
-            raise NotImplementedError(tgp_mod._TODO_BAYES)
+                 buckets=(256, 4096), S_MC: int = 100,
+                 fully_bayesian: bool = False, seed: int = 0, device=None):
         tgp_mod.check_spec(spec)
         self.device = cfg.resolve_device(device)
         self.dtype = cfg.default_dtype()
@@ -67,6 +67,8 @@ class Predictor:
         self._Y_std_dev = torch.as_tensor(self.Y_std, dtype=self.dtype).to(
             self.device)
         self.buckets = tuple(sorted(buckets))
+        self.S_MC = S_MC
+        self.fully_bayesian = fully_bayesian
         self.seed = int(seed)
         self._calls = itertools.count()
 
@@ -111,12 +113,16 @@ class Predictor:
         Xp, n = self._pad(X)
         X3 = tgp_mod._ensure_3d(self.spec, self._to_device(Xp))
         spec, params = self.spec, self.params
+        gen = (self._next_generator()
+               if samples or quantiles or self.fully_bayesian else None)
         qf = tgp_mod.marginal_qf(spec, params, X3)
-        m1, m2, _, _ = tgp_mod.predictive_distribution(spec, params, X3, qf=qf)
+        m1, m2, _, _ = tgp_mod.predictive_distribution(
+            spec, params, X3, S_MC=self.S_MC,
+            fully_bayesian=self.fully_bayesian, rng=gen, qf=qf)
         parts, y = [m1, m2], None
         if samples or quantiles:
             y, _, _ = tgp_mod.sample_predictive(spec, params, X3, samples or 200,
-                                                self._next_generator(), qf=qf)
+                                                gen, self.fully_bayesian, qf=qf)
             if quantiles:
                 q = self._to_device(np.asarray(quantiles, self.np_dtype))
                 qv = torch.quantile(y, q, dim=1)          # (2, Dy, MB)
@@ -177,5 +183,7 @@ class Predictor:
         lpp = tgp_mod.test_log_likelihood(
             self.spec, self.params, self._to_device(Xp),
             self._to_device(np.ascontiguousarray(Y)), self._Y_std_dev,
+            S_MC=self.S_MC, fully_bayesian=self.fully_bayesian,
+            rng=self._next_generator() if self.fully_bayesian else None,
             reduce=False)
         return lpp[..., :n].sum(dim=-1).cpu().numpy()

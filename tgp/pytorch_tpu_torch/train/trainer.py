@@ -16,6 +16,10 @@ package's `train/trainer.py`.
   * Multi-phase schedules (percentages of the epochs, each with [lr(, wd),
     name] groups); the Adam family's moments carry across phases and train()
     calls while the kind is unchanged.
+  * Input-dependent flows: every step's dropout masks or VI noise come from
+    the Trainer's one device `torch.Generator`; after training, hypernet
+    batch-norm statistics are recalibrated on the training inputs.
+    `fully_bayesian` evaluates with S_MC = S_test hypernet draws.
 
 Not ported yet: natural gradients and L-BFGS (ROADMAP Queue 1 item 19),
 meshes, checkpoints and evaluation on another device (item 20), the
@@ -73,8 +77,9 @@ class Trainer:
       Y_std: (Dy,) de-normalisation of the regressed variable.
       S_test: predictive samples per row for the coverage metric.
       validate_each: epochs between evaluations during training.
-      seed: seed of the `torch.Generator` that the evaluation samples draw
-        from.
+      seed: seed of the Trainer's `torch.Generator` (on `device`), which
+        every training step's hypernet draws and the evaluation's samples
+        come from.
       device: where training runs; None means the card (raises without one).
     """
 
@@ -110,7 +115,8 @@ class Trainer:
         self.loss_curve = []   # ELBO per step (full batch) or per epoch
         self.ell_curve = []
         self.kld_curve = []
-        #: MC-dropout prediction, which waits for ROADMAP Queue 1 item 13
+        #: evaluate with S_MC = S_test hypernet draws (MC-dropout or VI
+        #: posterior of the flow) instead of the point-estimate flow
         self.fully_bayesian = False
         #: evaluation on another device, which waits for item 20
         self.eval_device = None
@@ -142,7 +148,7 @@ class Trainer:
     def _step(self, step, X, Y):
         """One optimisation step; returns (elbo, ell, kld) on the device."""
         leaves = tree_leaves(self.params)
-        e, ell, kld = tgp_mod.elbo(self.spec, self.params, X, Y)
+        e, ell, kld = tgp_mod.elbo(self.spec, self.params, X, Y, self._gen)
         grads = torch.autograd.grad(-e, leaves, allow_unused=True,
                                     materialize_grads=True)
         step(grads)
@@ -197,6 +203,15 @@ class Trainer:
                                                clip_norm)
             run = self._run_full_batch if full_batch else self._run_minibatch
             ep_done = run(step, phase_epochs, epochs, ep_done, ve, verbose_each)
+        if self.spec.has_bn_flow:
+            # the hypernets' batch-norm statistics for evaluation, from the
+            # training inputs; written into the leaves the optimizer holds
+            new = tgp_mod.finalize_batch_norm(self.spec, self.params,
+                                              self.train_loader.dataset.X)
+            with torch.no_grad():
+                for old, t in zip(tree_leaves(self.params), tree_leaves(new)):
+                    if t is not old:
+                        old.copy_(t)
         return self
 
     def _run_full_batch(self, step, phase_epochs, epochs, ep_done, ve,
@@ -334,14 +349,20 @@ class Trainer:
     @torch.no_grad()
     def _eval_batch(self, X, Y):
         """(log p(Y|X) (Dy,), predictive mean (Dy, MB), whether each Y lies
-        inside its 95% band of S_test predictive samples (Dy, MB))."""
+        inside its 95% band of S_test predictive samples (Dy, MB)).  Two
+        `marginal_qf` calls: the log-likelihood's and the one that the
+        moments and the samples share."""
         spec, params = self.spec, self.params
-        log_p = tgp_mod.test_log_likelihood(spec, params, X, Y, self._Y_std_dev)
+        fb = dict(S_MC=self.S_test if self.fully_bayesian else 1,
+                  fully_bayesian=self.fully_bayesian, rng=self._gen)
+        log_p = tgp_mod.test_log_likelihood(spec, params, X, Y, self._Y_std_dev,
+                                            **fb)
         X3 = tgp_mod._ensure_3d(spec, X)
         qf = tgp_mod.marginal_qf(spec, params, X3)
-        m1 = tgp_mod.predictive_distribution(spec, params, X3, qf=qf)[0]
+        m1 = tgp_mod.predictive_distribution(spec, params, X3, qf=qf, **fb)[0]
         samples = tgp_mod.sample_predictive(spec, params, X3, self.S_test,
-                                            self._gen, qf=qf)[0]
+                                            self._gen, self.fully_bayesian,
+                                            qf=qf)[0]
         return log_p, m1, inside_95(samples, Y.T, dim=1)
 
     def _metrics_for_loader(self, loader):
@@ -363,8 +384,6 @@ class Trainer:
         if self.eval_device is not None:
             raise NotImplementedError("eval_device is not ported yet (ROADMAP "
                                       "Queue 1 item 20)")
-        if self.fully_bayesian:
-            raise NotImplementedError(tgp_mod._TODO_BAYES)
         res = {"train": self._metrics_for_loader(self.train_loader)}
         if self.valid_loader is not None:
             res["valid"] = self._metrics_for_loader(self.valid_loader)

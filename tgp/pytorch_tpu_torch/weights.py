@@ -1,10 +1,12 @@
 """Model weights and specs from outside the port.
 
   * `params_from_jax` turns a JAX-package parameter tree, given as numpy
-    arrays, into the port's params: the layout is the same dict/list tree,
+    arrays, into the port's params: the layout is the same dict/list tree
+    (an input-dependent step's nets as `net_*/layers/[i]/{W, b, bn, ...}`),
     so this is a leaf-wise conversion.  `params_to_numpy` is its inverse.
   * `spec_from_dict` builds the port's `TGPSpec` from the dict that the JAX
-    package's `models/serialization.py::spec_to_dict` emits.
+    package's `models/serialization.py::spec_to_dict` emits, hypernet
+    specs included.
   * `flagship_spec` / `flagship_params` build the flagship TGP that the
     serving path is measured on (the shapes of `benchmarks/serving.py`), with
     a seeded numpy perturbation of its init so that the flow is not the
@@ -20,6 +22,7 @@ import torch
 from . import config as cfg
 from .flows import generators
 from .flows.core import FlowStep, spec_from_list
+from .flows.hypernet import HyperNetSpec
 from .likelihoods.gaussian import LikelihoodSpec
 from .models.tgp import TGPSpec, check_spec, init_tgp_params
 from .ops.kernels import KernelSpec, from_name
@@ -71,8 +74,9 @@ def _kernel_from_dict(d) -> KernelSpec:
 
 
 def _step_from_dict(d) -> FlowStep:
+    hyper = None if d["hypernet"] is None else HyperNetSpec(**d["hypernet"])
     return FlowStep(d["kind"], d["set_restrictions"], d["add_init_f0"],
-                    d["input_dependent"], d["hypernet"], d["constraint"],
+                    d["input_dependent"], hyper, d["constraint"],
                     d["learnable"], d["n_terms"],
                     tuple(_step_from_dict(x) for x in d["sub"]))
 
