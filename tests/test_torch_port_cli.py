@@ -216,7 +216,7 @@ def test_cli_table_arch_minibatch_matches_the_jax_cli(monkeypatch, capsys,
 
 @pytest.mark.parametrize("flags, item", [
     (["--model", "ID_TGP", "--mesh", "4x2"], "item 20"),
-    (["--model", "WGP"], "item 16"),
+    (["--model", "WGP", "--checkpoint_dir", "ckpt"], "item 20"),
     (["--model", "DGP"], "item 19"),
     (["--model", "TGP", "--precision", "bf16"], "item 20"),
     (["--model", "TGP", "--fast_solves"], "item 18"),
@@ -239,9 +239,9 @@ def test_cli_exits_non_zero_naming_the_item():
     env = dict(os.environ, PYTHONPATH=str(REPO))
     res = subprocess.run(
         [sys.executable, "-m", "tgp.pytorch_tpu_torch.experiments.main",
-         "--model", "WGP"] + ARGV, cwd=REPO, env=env, capture_output=True,
+         "--model", "DGP"] + ARGV, cwd=REPO, env=env, capture_output=True,
         text=True, timeout=300)
-    assert res.returncode != 0 and "item 16" in res.stderr
+    assert res.returncode != 0 and "item 19" in res.stderr
 
 
 def test_cli_needs_a_card_unless_asked_for_the_cpu():

@@ -33,6 +33,14 @@ TRAIN = (1, 8611, 100, 4)       # the flagship's full-batch training Gram
 CLI_SHAPES = [(1, 455, 100, 13), (1, 51, 100, 13), (1, 10000, 20, 17),
               (1, 740, 20, 17), (1, 10000, 20, 9), (1, 1157, 20, 9),
               (1, 7372, 20, 8)]
+# the classification protocol's: 1080 training and 120 test rows, M=50,
+# Dx=4; the 3-class model batches one Gram a class (Dy=3)
+CLASS_SHAPES = [(1, 1080, 50, 4), (1, 120, 50, 4), (3, 1080, 50, 4),
+                (3, 120, 50, 4)]
+# the warped GP's on boston (Dx=13): serving at buckets 256 and 4096
+# (M=100), and the StepTanhL run's 455 training and 51 test rows at M=20
+WGP_SHAPES = [(1, 256, 100, 13), (1, 4096, 100, 13), (1, 455, 20, 13),
+              (1, 51, 20, 13)]
 
 
 @pytest.fixture
@@ -82,7 +90,8 @@ def test_kernel_matches_plain_version(dev, shape, dtype):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 # (2, 37, 300, 50): Z too wide for the shared-memory budget, staged in chunks
-@pytest.mark.parametrize("shape", SHAPES + [TRAIN, (2, 37, 300, 50)] + CLI_SHAPES)
+@pytest.mark.parametrize("shape", SHAPES + [TRAIN, (2, 37, 300, 50)] + CLI_SHAPES
+                         + CLASS_SHAPES + WGP_SHAPES)
 def test_pair_kernel_matches_plain_version(dev, shape, dtype):
     Xs, Zs, ks = _inputs(dev, shape, dtype)
     before = R.LAUNCHES
@@ -113,7 +122,8 @@ def test_gradients_match_autograd_of_plain_version(dev, dtype):
 @pytest.mark.parametrize("pair", [False, True])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("shape", [(2, 131, 77, 3), (1, 4096, 100, 4), TRAIN,
-                                   (3, 1, 1, 9), (2, 37, 300, 50)] + CLI_SHAPES)
+                                   (3, 1, 1, 9), (2, 37, 300, 50)] + CLI_SHAPES
+                         + CLASS_SHAPES + WGP_SHAPES)
 def test_backward_kernel_matches_plain_version(dev, shape, dtype, pair):
     Xs, Zs, ks = _inputs(dev, shape, dtype, seed=2)
     Dy, N, M, _ = shape
@@ -390,3 +400,73 @@ def test_bayesian_moments_on_the_card_match_the_cpu(dev, monkeypatch, dtype):
     for a, b in zip(*outs):
         assert a.shape == b.shape and torch.isfinite(a).all()
         assert _rel(a, b) <= tol
+
+
+def _one_step(dev, spec, params, X, Y, precision="fp64"):
+    """One full-batch Trainer step on the card; returns (forward launches,
+    backward calls, the step's ELBO)."""
+    from tgp.pytorch_tpu_torch.data import ArrayDataset, DataLoader
+    from tgp.pytorch_tpu_torch.train import Trainer
+
+    pcfg.set_precision(precision)
+    try:
+        tr = Trainer(spec, params, [DataLoader(ArrayDataset(X, Y), 10000)],
+                     np.ones(1), device=dev)
+        before = (R.LAUNCHES, R.BWD_LAUNCHES)
+        tr.train(1, 0.01, "adam", verbose_each=0)
+        calls = (R.LAUNCHES - before[0], R.BWD_LAUNCHES - before[1])
+    finally:
+        pcfg.set_precision("fp32")
+    return calls, tr.loss_curve[0]
+
+
+def test_wgp_step_goes_through_both_kernels_once(dev):
+    """A warped-GP (log_exp warp, T^{-1} by Newton) training step: its
+    gradient goes through dT/dy, and the Gram once each way."""
+    from tgp.pytorch_tpu_torch.flows.core import spec_from_list
+    from tgp.pytorch_tpu_torch.likelihoods import LikelihoodSpec
+    from tgp.pytorch_tpu_torch.models import tgp as M
+    from tgp.pytorch_tpu_torch.ops import kernels
+
+    rng = np.random.RandomState(0)
+    X, Y = rng.randn(455, 13), rng.randn(455, 1)
+    wspec, winits = spec_from_list([("log_exp", {
+        "add_init_f0": True, "init_a": [-1.0] * 3, "init_b": [0.5] * 3,
+        "init_c": [-1.0, 0.0, 1.0]})])
+    spec = M.TGPSpec(Dy=1, Dx=13, M=100, N=455.0,
+                     kernel=kernels.from_name("scale_rbf"),
+                     likelihood=LikelihoodSpec("warped", 1, warp_flow=wspec))
+    params = M.init_tgp_params(spec, X, X[:100], warp_inits=winits,
+                               dtype=torch.float64, device="cpu")
+    calls, elbo = _one_step(dev, spec, params, X, Y)
+    assert calls == (1, 1) and np.isfinite(elbo)
+
+
+def test_categorical_step_goes_through_both_kernels_once(dev, monkeypatch):
+    """A 3-class categorical step (per-class BCL_AL, 32 MC draws, the Gram
+    at Dy=3): 1 forward launch and 1 backward call, and the ELBO the CPU
+    gives on the same draws."""
+    from tgp.pytorch_tpu_torch.data.uci_classification import synthetic_corpus
+    from tgp.pytorch_tpu_torch.flows import generators as G
+    from tgp.pytorch_tpu_torch.flows.core import spec_from_list
+    from tgp.pytorch_tpu_torch.likelihoods import LikelihoodSpec
+    from tgp.pytorch_tpu_torch.models import tgp as M
+    from tgp.pytorch_tpu_torch.ops import kernels
+
+    X, y = synthetic_corpus("multiclass")
+    X, y = X[:1080], y[:1080].reshape(-1, 1)
+    np.random.seed(0)
+    fspec, finits = spec_from_list(G.build_chain("BCL_AL", 1))
+    spec = M.TGPSpec(Dy=3, Dx=4, M=50, N=1080.0,
+                     kernel=kernels.from_name("scale_rbf"),
+                     likelihood=LikelihoodSpec("categorical", 3, quad_points=32,
+                                               num_classes=3), flow=fspec)
+    params = M.init_tgp_params(spec, X, X[:50], variance_scale=1e-5,
+                               flow_inits=finits, dtype=torch.float64,
+                               device="cpu")
+    out = []
+    for device in (dev, "cpu"):
+        _cpu_draws(monkeypatch, 5)
+        out.append(_one_step(device, spec, params, X, y))
+    assert out[0][0] == (1, 1) and out[1][0] == (0, 0)
+    assert abs(out[0][1] - out[1][1]) <= 1e-10 * abs(out[1][1])

@@ -186,11 +186,16 @@ def test_unported_flows_and_likelihoods_raise():
         assert spec_p.flow == ps and spec_p.has_input_dependent_flow
     with pytest.raises(ValueError, match="unknown flow kind"):
         p_spec_from_list([("no_such_flow", {})])
+    # the classification and warped likelihoods are ported: their specs
+    # come through spec_to_dict / spec_from_dict as the JAX package's
     spec_j, *_ = build("sal2")
-    d = jser.spec_to_dict(dataclasses.replace(
-        spec_j, likelihood=JLik("bernoulli", 1)))
-    with pytest.raises(NotImplementedError, match="item 16"):
-        weights.spec_from_dict(d)
+    warp, _ = j_spec_from_list(jG.SAL(1))
+    for lik in (JLik("bernoulli", 1, quad_points=50),
+                JLik("categorical", 1, quad_points=32, num_classes=3),
+                JLik("warped", 1, warp_flow=warp)):
+        d = jser.spec_to_dict(dataclasses.replace(spec_j, likelihood=lik))
+        got = weights.spec_from_dict(d).likelihood
+        assert dataclasses.astuple(got) == dataclasses.astuple(lik)
 
 
 def test_loader_is_bit_identical_to_jax_package():

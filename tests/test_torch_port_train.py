@@ -559,6 +559,50 @@ def _id_option_matches_jax(option, monkeypatch):
     assert replay.sites == (4 if option == "bn_flow" else 12)
 
 
+def _classification_matches_jax():
+    """A Bernoulli TGP (SAL(1) flow, M=8, 20 GH nodes) on 120 synthetic rows
+    trained by the port's Trainer and by the JAX Trainer for 10 epochs, the
+    kernel held for the first 5, gradients clipped at norm 100: the curves,
+    every parameter, and logL, accuracy and the calibration measures of
+    `compute_metrics` at rtol 1e-8 (no draw is read: the predictive
+    samples are not used by the classification metrics)."""
+    rs = np.random.RandomState(0)
+    N = 120
+    X = rs.randn(N, 2)
+    y = (X[:, 0] + 0.3 * rs.randn(N) > 0).astype(np.float64).reshape(-1, 1)
+    js, ji = j_spec_from_list(jG.SAL(1))
+    spec_j = JM.TGPSpec(Dy=1, Dx=2, M=8, N=float(N),
+                        kernel=jK.from_name("scale_rbf"),
+                        likelihood=JLik("bernoulli", 1, quad_points=20), flow=js)
+    pj = JM.init_tgp_params(spec_j, X, X[:8], flow_inits=ji)
+    spec_p = weights.spec_from_dict(jser.spec_to_dict(spec_j))
+    pp = weights.params_from_jax(jax.tree_util.tree_map(np.asarray, pj),
+                                 device="cpu", dtype=torch.float64)
+    tr_j = JTrainer(spec_j, pj, [JLoader(JDataset(X, y), N, seed=0),
+                                 JLoader(JDataset(X, y), N, shuffle=False)],
+                    Y_std=np.ones(1), S_test=10)
+    tr_p = Trainer(spec_p, pp, [DataLoader(ArrayDataset(X, y), N, seed=0),
+                                DataLoader(ArrayDataset(X, y), N, shuffle=False)],
+                   np.ones(1), S_test=10, device="cpu")
+    for tr in (tr_j, tr_p):
+        tr.train(10, 0.01, "adam", verbose_each=0, clip_norm=100.0,
+                 optimisation_schedule=([0.5, 0.5], [[[0.0, "kernel"]], None]))
+    for attr in ("loss_curve", "ell_curve", "kld_curve"):
+        np.testing.assert_allclose(np.asarray(getattr(tr_p, attr)),
+                                   [float(v) for v in getattr(tr_j, attr)], **F64)
+    for a, b in zip(weights.tree_leaves(tr_p.params),
+                    jax.tree_util.tree_leaves(tr_j.params)):
+        close(a, b)
+    mp, mj = tr_p.compute_metrics(), tr_j.compute_metrics()
+    for split in ("train", "test"):
+        assert mp[split].keys() == mj[split].keys() == {"logL", "acc",
+                                                        "calibration"}
+        np.testing.assert_allclose(mp[split]["logL"], mj[split]["logL"], **F64)
+        assert mp[split]["acc"] == mj[split]["acc"]
+        for k, v in mj[split]["calibration"].items():
+            np.testing.assert_allclose(mp[split]["calibration"][k], v, **F64)
+
+
 @pytest.mark.parametrize("option, item", [
     ("natgrad_gamma", "item 19"), ("natgrad_warmup", "item 19"),
     ("lbfgs", "item 19"), ("mesh", "item 20"), ("save", "item 20"),
@@ -571,6 +615,9 @@ def test_unported_options_raise_and_name_their_item(option, item, monkeypatch):
     if option in ("fully_bayesian", "bn_flow"):
         # item 13 is ported: these two now hold the result against JAX
         return _id_option_matches_jax(option, monkeypatch)
+    if option == "classification":
+        # item 16 is ported: a Bernoulli Trainer holds the JAX one
+        return _classification_matches_jax()
     with pytest.raises(NotImplementedError, match=item):
         if option in ("natgrad_gamma", "natgrad_warmup"):
             _small_trainer().train(2, 0.01, **{option: 1})

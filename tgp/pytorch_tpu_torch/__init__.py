@@ -6,10 +6,12 @@ PyTorch idiom inside: plain functions on tensors, dict parameter trees, an
 explicit `device` and explicit `torch.Generator`s.  It imports neither JAX
 nor anything of the JAX package.
 
-Ported so far: serving and training (`serve.Predictor`, `train.Trainer`)
-and the experiment CLI for SVGP and TGP (`experiments.main`) over every
-point-estimate flow, a scale-RBF ARD kernel and whitened q(U), with the
-fused ARD-RBF Gram and its VJP as hand-written CUDA kernels
+Ported so far: serving and training (`serve.Predictor`, `train.Trainer`),
+the experiment CLI for SVGP, TGP, ID_TGP and WGP (`experiments.main`) and
+the classification protocol (`experiments.classification_protocol`), over
+every point-estimate and input-dependent flow, every likelihood (Gaussian,
+warped, Bernoulli, categorical), a scale-RBF ARD kernel and whitened q(U),
+with the fused ARD-RBF Gram and its VJP as hand-written CUDA kernels
 (`ops/rbf_gram.py`, `csrc/`).  Kinds not yet ported raise
 NotImplementedError naming their ROADMAP item.
 """

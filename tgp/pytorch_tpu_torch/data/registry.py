@@ -1,33 +1,48 @@
 """Dataset registry: name -> data loaders + data_config, the UCI regression
-part of the JAX package's `data/registry.py::return_dataset`.
+and classification part of the JAX package's `data/registry.py::
+return_dataset`.
 
-The classification tables and the large corpora wait for ROADMAP Queue 1
-item 20.
+The large corpora (airline, year, rainfall, air quality) wait for ROADMAP
+Queue 1 item 20.
 """
 
 from __future__ import annotations
 
 from .batching import ArrayDataset, DataLoader
 from .uci import UCI_TABLE, load_uci_split
+from .uci_classification import CLASSIFICATION_LOADERS, NUM_CLASSES
+
+UCI_REGRESSION = [n for n, s in UCI_TABLE.items() if s.task == "regression"]
+UCI_CLASSIFICATION = list(CLASSIFICATION_LOADERS)
 
 
 def return_dataset(name: str, batch_size: int, use_validation=None,
                    seed: int = 1, options: dict | None = None):
     """Build [train(, valid), test] DataLoaders and a data_config dict
     (X_tr, Y_tr, N_tr, Dx, Dy, Y_std, Y_mean, task) for a named dataset.
+    A classification dataset's Dy is its number of classes, its Y the
+    labels (JAX `data/registry.py:12-71`).
 
     options keys honoured: 'shuffle_train' (default True), 'generator_seed'
     for the training loader's generator (default 0), 'normalize_y'.
     """
-    if name not in UCI_TABLE:
+    if name in UCI_TABLE:
+        is_classification = False
+    elif name in CLASSIFICATION_LOADERS:
+        is_classification = True
+    else:
         raise NotImplementedError(
             f"dataset {name!r} is not ported yet: the port reads the UCI "
-            "regression tables only (ROADMAP Queue 1 item 20)")
+            "regression and classification tables only (ROADMAP Queue 1 "
+            "item 20)")
     options = dict(options or {})
     shuffle_train = bool(options.get("shuffle_train", True))
     gen_seed = options.get("generator_seed", 0)
-    split = load_uci_split(name, seed, use_validation,
-                           normalize_y=options.get("normalize_y", True))
+    if is_classification:
+        split = CLASSIFICATION_LOADERS[name](seed, use_validation)
+    else:
+        split = load_uci_split(name, seed, use_validation,
+                               normalize_y=options.get("normalize_y", True))
 
     loaders = [DataLoader(ArrayDataset(split["X_tr"], split["Y_tr"]),
                           batch_size, shuffle=shuffle_train, seed=gen_seed)]
@@ -42,9 +57,9 @@ def return_dataset(name: str, batch_size: int, use_validation=None,
         "Y_tr": split["Y_tr"],
         "N_tr": split["X_tr"].shape[0],
         "Dx": split["X_tr"].shape[1],
-        "Dy": split["Y_tr"].shape[1],
+        "Dy": NUM_CLASSES[name] if is_classification else split["Y_tr"].shape[1],
         "Y_std": split["Y_std"],
         "Y_mean": split["Y_mean"],
-        "task": "regression",
+        "task": "classification" if is_classification else "regression",
     }
     return loaders, data_config

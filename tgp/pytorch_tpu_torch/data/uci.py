@@ -4,7 +4,7 @@ copy of the JAX package's `data/uci.py` (`load_uci_split`,
 
 The CSVs are parsed with `np.loadtxt` (no pandas, no native parser), and
 their md5 sums are checked as in the JAX package.  The classification
-tables wait for ROADMAP Queue 1 item 20.
+loaders live in `uci_classification.py`.
 """
 
 from __future__ import annotations

@@ -1,10 +1,11 @@
-"""The experiment CLI of the port, for SVGP, TGP and ID_TGP:
+"""The experiment CLI of the port, for SVGP, TGP, ID_TGP and WGP:
 
     python -m tgp.pytorch_tpu_torch.experiments.main \\
-        --model {SVGP,TGP,ID_TGP} --dataset <name> \\
+        --model {SVGP,TGP,ID_TGP,WGP} --dataset <name> \\
         --train_test_seed_split S --num_inducing M [--epochs E] \\
         [--precision fp64|fp32] [--platform gpu|cpu] \\
-        [--nnet_inference MC_dropout|mean_field_gaussian]
+        [--nnet_inference MC_dropout|mean_field_gaussian] \\
+        [--warp_arch SAL|log_exp|StepTanhL] [--warp_terms K]
 
 It takes the flags of the repo's `experiments/main.py` (the JAX package's
 CLI) and does what that CLI does for these models: the UCI split, k-means
@@ -13,7 +14,11 @@ inducing points, the dataset's flow architecture from the paper's tables
 hypernets fitted to their identity anchors), the same model and init, Adam
 for --epochs at --lr (ID_TGP: the nets at weight decay 1e-5), then the test
 metrics and the same result line; ID_TGP prints a second, `BAYESIAN FLOW`
-line for the fully-Bayesian evaluation (S_test hypernet draws).
+line for the fully-Bayesian evaluation (S_test hypernet draws).  WGP is the
+warped GP: SVGP's model with a learnable observation warp T in the
+likelihood (SAL(1); `log_exp`, y plus K softplus terms, inverted by
+Newton's method; or StepTanhL(1, K) with y added, fitted to the identity
+over the targets' range first).
 Defaults are the paper's: batch 10000, 15000 epochs, lr 0.01, noise 0.05,
 lengthscale and output scale 2, q(U) variance 1e-5, whitened, fp64 with 100
 quadrature points, S_test 100.
@@ -38,14 +43,18 @@ def parse_args(argv=None):
     p = argparse.ArgumentParser(description="TGP on the GPU (PyTorch port)")
     p.add_argument("--model", required=True,
                    choices=["SVGP", "TGP", "ID_TGP", "WGP", "DGP"],
-                   help="SVGP, TGP and ID_TGP are ported; WGP and DGP "
-                        "exit naming their ROADMAP item")
+                   help="SVGP, TGP, ID_TGP and WGP are ported; DGP exits "
+                        "naming its ROADMAP item")
     p.add_argument("--layers", type=int, default=2, help="DGP depth")
     p.add_argument("--dgp_flow", action="store_true")
     p.add_argument("--S_train", type=int, default=1)
     p.add_argument("--warp_arch", default="SAL",
-                   choices=["SAL", "log_exp", "StepTanhL"])
-    p.add_argument("--warp_terms", type=int, default=3)
+                   choices=["SAL", "log_exp", "StepTanhL"],
+                   help="WGP's observation warp: SAL(1), log_exp (y + K "
+                        "softplus terms) or StepTanhL (K tanh steps + y, "
+                        "identity-fitted)")
+    p.add_argument("--warp_terms", type=int, default=3,
+                   help="log_exp terms / StepTanhL steps K")
     p.add_argument("--dataset", required=True)
     p.add_argument("--train_test_seed_split", required=True, type=int)
     p.add_argument("--num_inducing", required=True, type=int)
@@ -84,13 +93,9 @@ def parse_args(argv=None):
 def refusal(args):
     """The message for a model or option the port lacks, naming its
     ROADMAP Queue 1 item, or None."""
-    todo = {
-        "WGP": "--model WGP (the warped likelihood) is not ported yet "
-               "(ROADMAP Queue 1 item 16)",
-        "DGP": "--model DGP (deep GPs) is not ported yet (ROADMAP Queue 1 "
-               "item 19)"}
-    if args.model in todo:
-        return todo[args.model]
+    if args.model == "DGP":
+        return ("--model DGP (deep GPs) is not ported yet (ROADMAP Queue 1 "
+                "item 19)")
     levers = [
         (args.precision == "bf16", "--precision bf16", 20),
         (args.fast_solves, "--fast_solves", 18),
@@ -119,7 +124,8 @@ class Run:
     metrics: dict
     trainer: object
     Z0: np.ndarray
-    #: the identity fit of a Step* arch: (flow spec, fitted params, MSE)
+    #: the identity fit of a Step* arch, or of WGP's StepTanhL warp: (flow
+    #: spec, fitted params, MSE)
     identity_fit: tuple | None
     train_s: float
     line: str
@@ -149,6 +155,7 @@ def run(args) -> Run:
     from ..flows.initializers import (fit_flow_to_identity,
                                       fit_hypernet_to_anchors)
     from ..likelihoods.gaussian import LikelihoodSpec
+    from ..ops.transforms import np_inv_softplus
     from ..models import tgp as M
     from ..ops import kernels as K, rbf_gram as R
     from ..train import Trainer
@@ -174,7 +181,8 @@ def run(args) -> Run:
                         seed=cfg.config_seed)
 
     # ---- flow architecture -------------------------------------------------
-    hp = return_hyperparams(args.model, args.dataset)
+    hp = return_hyperparams("SVGP" if args.model == "WGP" else args.model,
+                            args.dataset)
     if args.nnet_inference and args.model == "ID_TGP":
         hp["flow_inference"] = args.nnet_inference
         if args.nnet_inference == "mean_field_gaussian":
@@ -208,8 +216,35 @@ def run(args) -> Run:
             flow_spec, flow_inits = FA.build_point_flow(arch, nb)
 
     # ---- likelihood, kernel, model -------------------------------------------
+    warp_inits = None
     if args.model == "SVGP":
         lik = LikelihoodSpec("gaussian", Dy, noise_is_shared=False)
+    elif args.model == "WGP":
+        np.random.seed(cfg.config_seed)
+        if args.warp_arch == "SAL":
+            warp_spec, _ = spec_from_list(G.SAL(1))    # identity at init
+        elif args.warp_arch == "log_exp":
+            # T(y) = y + sum_k a_k softplus(b_k (y + c_k)): per-term slope
+            # 1/K, offsets over [-1, 1]; T^{-1} by Newton's method
+            Kt = args.warp_terms
+            warp_spec, warp_inits = spec_from_list([("log_exp", {
+                "add_init_f0": True,
+                "init_a": [float(np_inv_softplus(1.0 / Kt))] * Kt,
+                "init_b": [float(np_inv_softplus(1.0))] * Kt,
+                "init_c": np.linspace(-1.0, 1.0, Kt).tolist()})])
+        else:
+            # StepTanhL with y added (a bijection of R), fitted to the
+            # identity over the targets' range
+            print("==== identity-fitting the StepTanhL warp ====", flush=True)
+            y = dc["Y_tr"]
+            fit = fit_flow_to_identity(
+                lambda: G.StepTanhL(1, args.warp_terms, add_f0=True),
+                float(y.min()) - 1.0, float(y.max()) + 1.0,
+                num_restarts=1, num_epochs=2000, device=device)
+            warp_spec = fit[0]
+            print(f"warp identity-fit MSE {fit[2]:.3e}", flush=True)
+        lik = LikelihoodSpec("warped", Dy, noise_is_shared=False,
+                             quad_points=cfg.quad_points, warp_flow=warp_spec)
     else:
         lik = LikelihoodSpec("gaussian_flow", Dy, noise_is_shared=False,
                              quad_points=cfg.quad_points)
@@ -219,8 +254,11 @@ def run(args) -> Run:
     params = M.init_tgp_params(
         spec, dc["X_tr"], Z0, variance_scale=1e-5, mean_scale=0.0,
         kernel_init={"length_scale": 2.0, "kernel_scale": 2.0},
-        noise_init=0.05, flow_inits=flow_inits, device=device)
-    if fit is not None:
+        noise_init=0.05, flow_inits=flow_inits, warp_inits=warp_inits,
+        device=device)
+    if fit is not None and args.model == "WGP":
+        params["likelihood"]["warp"] = fit[1]
+    elif fit is not None:
         params["flow"] = tree_map(lambda x: torch.stack([x] * Dy), fit[1])
 
     # ---- ID_TGP: the hypernets fitted to their anchors -----------------------

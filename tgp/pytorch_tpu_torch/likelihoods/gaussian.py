@@ -3,7 +3,10 @@ log-likelihoods and predictive moments of the JAX package's
 `likelihoods/gaussian.py`.
 
 Parameters are {'log_var_noise': (Dy or 1, 1)} with the 'exp' positive
-transform.  The other likelihood kinds wait for ROADMAP Queue 1 item 16.
+transform (and, for the warped likelihood, the observation warp's flow
+parameters under 'warp'); the classification likelihoods have none.  The
+Bernoulli and categorical likelihoods live in `classification.py`, the
+warped one in `warped.py`.
 """
 
 from __future__ import annotations
@@ -15,17 +18,20 @@ import numpy as np
 import torch
 
 from .. import config as cfg
+from ..ops.linalg import cholesky_solve, safe_cholesky
 from ..ops.quadrature import GaussHermite
 
-PORTED_KINDS = ("gaussian", "gaussian_flow")
+PORTED_KINDS = ("gaussian", "gaussian_flow", "bernoulli", "categorical",
+                "warped")
 
 
 @dataclasses.dataclass(frozen=True)
 class LikelihoodSpec:
     """Static likelihood description.
 
-    kind: 'gaussian' | 'gaussian_flow' are ported; 'bernoulli',
-    'categorical' and 'warped' raise NotImplementedError.
+    kind: 'gaussian' | 'gaussian_flow' | 'bernoulli' | 'categorical' |
+    'warped'.  warp_flow: for 'warped', the flow spec of the observation
+    warp T (applied to Y, not to the process).
     """
 
     kind: str
@@ -35,22 +41,34 @@ class LikelihoodSpec:
     num_classes: int = 0
     warp_flow: tuple = ()
 
+    @property
+    def is_classification(self) -> bool:
+        return self.kind in ("bernoulli", "categorical")
+
 
 def check_likelihood(spec: LikelihoodSpec) -> None:
     if spec.kind not in PORTED_KINDS:
-        raise NotImplementedError(f"likelihood {spec.kind!r} is not ported yet "
-                                  "(ROADMAP Queue 1 item 16)")
+        raise ValueError(f"unknown likelihood kind {spec.kind!r}")
 
 
 def init_likelihood_params(spec: LikelihoodSpec, noise_init: float = 0.05,
-                           dtype=None, device=None):
-    """A (Dy,1) (or shared (1,1)) log-variance parameter."""
+                           dtype=None, device=None, warp_inits=None):
+    """A (Dy,1) (or shared (1,1)) log-variance parameter, plus the warp's
+    flow parameters ('warp', from `warp_inits`) for the warped likelihood;
+    {} for classification (JAX `likelihoods/gaussian.py:46-59`)."""
     check_likelihood(spec)
+    if spec.is_classification:
+        return {}
     dtype = dtype or cfg.default_dtype()
     device = cfg.resolve_device(device)
     n = 1 if spec.noise_is_shared else spec.out_dim
-    return {"log_var_noise": torch.full((n, 1), float(np.log(noise_init)),
-                                        dtype=dtype, device=device)}
+    params = {"log_var_noise": torch.full((n, 1), float(np.log(noise_init)),
+                                          dtype=dtype, device=device)}
+    if spec.kind == "warped" and spec.warp_flow:
+        from ..flows.core import init_flow_params
+        params["warp"] = init_flow_params(spec.warp_flow, warp_inits, dtype,
+                                          device)
+    return params
 
 
 def noise_variance(spec: LikelihoodSpec, params, Dy: int | None = None):
@@ -73,6 +91,21 @@ def gaussian_ell(spec: LikelihoodSpec, params, Y, mu, var):
     log_p = torch.sum(_log_normal(Y, mu, C_y), dim=-1)
     trace = -0.5 * torch.sum(var / C_y, dim=-1)
     return log_p + trace
+
+
+def gaussian_log_marginal(spec: LikelihoodSpec, params, Y, mu, K):
+    """Exact log marginal likelihood log N(Y | mu, K + sigma^2 I), (Dy,).
+
+    Y and mu are (Dy, N), K is (Dy, N, N)."""
+    N = Y.shape[-1]
+    C_y = noise_variance(spec, params, Y.shape[0])        # (Dy, 1)
+    Kn = K + C_y[..., None] * torch.eye(N, dtype=K.dtype, device=K.device)
+    L, _ = safe_cholesky(Kn)
+    diff = (Y - mu)[..., None]
+    data_fit = torch.sum(diff * cholesky_solve(L, diff), dim=(-2, -1))
+    complexity = 2.0 * torch.sum(
+        torch.log(torch.diagonal(L, dim1=-2, dim2=-1)), dim=-1)
+    return -0.5 * (data_fit + complexity + N * math.log(2.0 * math.pi))
 
 
 def gaussian_flow_ell(spec: LikelihoodSpec, params, Y, mu, var, warp):

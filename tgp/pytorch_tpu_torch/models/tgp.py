@@ -16,7 +16,9 @@ diagonal of the covariance materialised.
 Every flow kind is ported, step_flow, log_exp and the input-dependent
 (hypernet) steps included, with the VI hypernets' KL term in the ELBO and
 fully-Bayesian prediction: S_MC hypernet draws on one leading axis, one
-`marginal_qf` for all of them.
+`marginal_qf` for all of them.  Every likelihood is ported: Gaussian,
+Gaussian through the flow, the warped GP (an observation warp T), and
+classification (Bernoulli with a Gauss-CDF link, categorical MC softmax).
 Not ported yet: whiten=False, full covariances, fast_solves, solve_precision
 levers and per-output flow architectures (item 18), and `spec.remat` (item
 21).
@@ -44,9 +46,16 @@ from ..flows.core import (
     check_step,
     finalize_bn,
     flow_forward,
+    flow_inverse,
     flow_kld,
     init_flow_params,
     is_identity_spec,
+)
+from ..likelihoods.classification import (
+    bernoulli_ell,
+    bernoulli_moments,
+    categorical_ell,
+    categorical_moments,
 )
 from ..likelihoods.gaussian import (
     LikelihoodSpec,
@@ -58,6 +67,7 @@ from ..likelihoods.gaussian import (
     gaussian_moments,
     gaussian_flow_moments,
 )
+from ..likelihoods.warped import warped_ell, warped_moments
 from .means import check_mean, mean_init, mean_apply
 
 _TODO_QF = "is not ported yet (ROADMAP Queue 1 item 18)"
@@ -179,12 +189,15 @@ def init_tgp_params(
     noise_init: float = 0.05,
     add_noise_inducing: float = 0.0,
     flow_inits=None,
+    warp_inits=None,
     dtype=None,
     device=None,
 ):
     """Build the full TGP parameter tree, with the JAX package's defaults.
 
     `init_Z` is an (M, Dx) array; `X_train` is unused by the zero mean.
+    `warp_inits` initialises the warped likelihood's observation warp
+    (JAX `models/tgp.py:214, 257-258`).
     The flows' hypernets (one set per output) draw from one CPU generator
     seeded with `config.config_seed`.
     """
@@ -216,7 +229,8 @@ def init_tgp_params(
                                       device)
     nm = 1 if spec.mean_is_shared else Dy
     mparams = mean_init(spec.mean, nm, Dx)
-    lparams = init_likelihood_params(spec.likelihood, noise_init, dtype, device)
+    lparams = init_likelihood_params(spec.likelihood, noise_init, dtype, device,
+                                     warp_inits=warp_inits)
 
     gen = torch.Generator().manual_seed(cfg.config_seed)
     if spec.has_flow and not spec.flow_is_shared:
@@ -397,10 +411,15 @@ def elbo(spec: TGPSpec, params, X, Y, rng=None):
     """Evidence lower bound for one minibatch:
         ELBO = N/MB * ELL - KL(q(U)||p(U)) - KL_flows.
 
-    X is (MB, Dx) and Y (MB, Dy).  One `marginal_qf` call, so one launch of
-    the Gram kernel when the tensors lie on the card.  `rng` (a
-    torch.Generator on the tensors' device) is required when the flow is
-    stochastic (dropout or VI hypernets, in training mode).
+    X is (MB, Dx); Y is (MB, Dy), or (MB,) or (MB, 1) class labels for
+    classification.  One `marginal_qf` call, so one launch of the Gram
+    kernel when the tensors lie on the card.  `rng` (a torch.Generator on
+    the tensors' device) is required when the flow is stochastic (dropout
+    or VI hypernets, in training mode) and for the categorical likelihood.
+    The categorical ELL takes two distinct draws from it, in this order:
+    the MC normals of f, then the hypernets' masks or noise as the warp
+    reaches them (the JAX package keeps their keys apart with
+    `fold_in(rng, 7919)`, JAX `models/tgp.py:555-563`).
     Returns (elbo, ell, kld), all 0-d tensors (maximise the elbo).
     """
     if spec.remat:
@@ -417,9 +436,19 @@ def elbo(spec: TGPSpec, params, X, Y, rng=None):
     lp = params["likelihood"]
     if lik.kind == "gaussian":
         ell = torch.sum(gaussian_ell(lik, lp, Y.T, mu, var))
-    else:                               # gaussian_flow (check_spec's filter)
+    elif lik.kind == "warped":
+        ell = torch.sum(warped_ell(lik, lp, Y.T, mu, var, lik.warp_flow,
+                                   lp["warp"]))
+    else:
         warp = _make_warp(spec, params, X3, rng, stochastic=True, train=True)
-        ell = torch.sum(gaussian_flow_ell(lik, lp, Y.T, mu, var, warp))
+        if lik.kind == "gaussian_flow":
+            ell = torch.sum(gaussian_flow_ell(lik, lp, Y.T, mu, var, warp))
+        elif lik.kind == "bernoulli":
+            ell = bernoulli_ell(lik, lp, Y.reshape(1, -1), mu, var, warp)
+        else:
+            if rng is None:
+                raise ValueError("the categorical ELL requires an rng")
+            ell = categorical_ell(lik, lp, Y.reshape(-1), mu, var, warp, rng)
     ell = spec.N / MB * ell
     total_kl = kl + kl_flow
     return ell - total_kl, ell, total_kl
@@ -435,21 +464,46 @@ def predictive_distribution(spec: TGPSpec, params, X, *, S_MC: int = 1,
 
     With `fully_bayesian` and a stochastic flow, the moments are those of
     the mixture over S_MC hypernet draws from the generator `rng`:
-    m1 = mean(m_s), m2 = mean(C_s + m_s^2) - m1^2.  `qf`, when given, is a
-    (mu, var) pair already computed by `marginal_qf` on the same X, so a
-    caller that also samples computes it once.
-    Returns (m1, m2, mu_f, var_f).
+    m1 = mean(m_s), m2 = mean(C_s + m_s^2) - m1^2; class probabilities are
+    the mean over the draws.  `qf`, when given, is a (mu, var) pair already
+    computed by `marginal_qf` on the same X, so a caller that also samples
+    computes it once.
+    Returns (m1, m2, mu_f, var_f); for classification m1 is the class
+    probabilities (MB, C) and m2 is None (JAX `models/tgp.py:595-672`).
+    The categorical likelihood draws its MC normals from `rng` (required).
     """
     X3 = _ensure_3d(spec, X)
     mu, var = qf if qf is not None else marginal_qf(spec, params, X3)
     lik = spec.likelihood
     lp = params["likelihood"]
     check_likelihood(lik)
+    bayes = fully_bayesian and spec.has_stochastic_flow
+    if (bayes or lik.kind == "categorical") and rng is None:
+        raise ValueError("fully-Bayesian and categorical prediction require "
+                         "an rng")
     if lik.kind == "gaussian":
         m1, m2 = gaussian_moments(lik, lp, mu, var)
-    elif fully_bayesian and spec.has_stochastic_flow:
-        if rng is None:
-            raise ValueError("fully-Bayesian prediction requires an rng")
+    elif lik.kind == "warped":
+        m1, m2 = warped_moments(lik, lp, mu, var, lik.warp_flow, lp["warp"])
+    elif lik.kind == "bernoulli":
+        warp = (_bayes_warp(spec, params, X3, rng, S_MC) if bayes
+                else _make_warp(spec, params, X3))
+        p1 = bernoulli_moments(lik, lp, mu, var, warp,
+                               identity_flow=not spec.has_flow)
+        if bayes:
+            p1 = torch.mean(p1, dim=0)
+        return torch.stack([1.0 - p1, p1], dim=-1), None, mu, var
+    elif lik.kind == "categorical":
+        if bayes:
+            warp = _make_warp(spec, params, X3, rng, stochastic=True,
+                              draws=(S_MC, 1))
+            probs = torch.mean(categorical_moments(
+                lik, lp, mu, var, warp, rng, draws=(S_MC,)), dim=0)
+        else:
+            probs = categorical_moments(lik, lp, mu, var,
+                                        _make_warp(spec, params, X3), rng)
+        return probs, None, mu, var
+    elif bayes:
         m_Y, C_Y = gaussian_flow_moments(
             lik, lp, mu, var, _bayes_warp(spec, params, X3, rng, S_MC))
         m1 = torch.mean(m_Y, dim=0)
@@ -466,20 +520,33 @@ def test_log_likelihood(spec: TGPSpec, params, X, Y, Y_std, *, S_MC: int = 1,
     """log p(Y*|X*) per output, shape (Dy,) (or (Dy, MB) with reduce=False),
     by Gauss-Hermite quadrature; densities rescaled by Y_std (Dy,).  With
     `fully_bayesian` and a stochastic flow, a log-mean-exp over S_MC
-    hypernet draws from `rng` follows the quadrature's log-sum-exp.
+    hypernet draws from `rng` follows the quadrature's log-sum-exp.  The
+    warped likelihood takes the Gaussian density of its predictive moments
+    (JAX `models/tgp.py:700-715`).  Classification sums the log of the true
+    class's probability, clipped at 1e-12: shape (1,) (or (1, MB)).
 
-    Y is (MB, Dy).
+    Y is (MB, Dy), or class labels (MB,) or (MB, 1).
     """
     MB = X.shape[-2]
     X3 = _ensure_3d(spec, X)
     lik = spec.likelihood
     lp = params["likelihood"]
     check_likelihood(lik)
+    if lik.is_classification:
+        probs = predictive_distribution(spec, params, X3, S_MC=S_MC,
+                                        fully_bayesian=fully_bayesian,
+                                        rng=rng)[0]
+        p_true = torch.gather(probs, 1, Y.reshape(-1, 1).long())[:, 0]
+        ll = torch.log(torch.clamp(p_true, 1e-12, 1.0))
+        return torch.sum(ll)[None] if reduce else ll[None]
     mu, var = marginal_qf(spec, params, X3)
     Ys = Y_std[:, None]                                   # (Dy, 1)
 
-    if lik.kind == "gaussian":
-        m, C = gaussian_moments(lik, lp, mu, var)
+    if lik.kind in ("gaussian", "warped"):
+        if lik.kind == "gaussian":
+            m, C = gaussian_moments(lik, lp, mu, var)
+        else:
+            m, C = warped_moments(lik, lp, mu, var, lik.warp_flow, lp["warp"])
         lpp = -0.5 * (torch.log(2 * math.pi * torch.square(Ys) * C)
                       + torch.square(Ys * Y.T - Ys * m) / (torch.square(Ys) * C))
         return torch.sum(lpp, dim=-1) if reduce else lpp
@@ -537,13 +604,28 @@ def sample_marginal(spec: TGPSpec, params, X, S: int, rng: torch.Generator,
 
 def sample_predictive(spec: TGPSpec, params, X, S: int, rng: torch.Generator,
                       fully_bayesian: bool = False, qf=None):
-    """S samples from p(y*|x*): warp posterior samples then add obs noise.
+    """S samples from p(y*|x*) (JAX `models/tgp.py:807-841`): posterior
+    samples of the warped process, then the observation model: Gaussian
+    noise; for the warped GP, T^{-1} of f + noise; a Bernoulli draw of
+    Phi(f); a categorical draw from softmax(f) (labels, shape (1, S, MB)).
 
     Returns (y_samples, fk, f0) with y (Dy, S, MB).
     """
-    check_likelihood(spec.likelihood)
+    lik = spec.likelihood
+    lp = params["likelihood"]
+    check_likelihood(lik)
     fk, _, _, f0 = sample_marginal(spec, params, X, S, rng, fully_bayesian, qf)
-    C_y = noise_variance(spec.likelihood, params["likelihood"])   # (Dy, 1)
-    noise = torch.randn(fk.shape, generator=rng, dtype=fk.dtype,
-                        device=fk.device) * torch.sqrt(C_y)[None]
-    return (fk + noise).transpose(0, 1), fk, f0
+    if lik.kind == "bernoulli":
+        y = torch.bernoulli(torch.special.ndtr(fk), generator=rng)
+    elif lik.kind == "categorical":
+        probs = torch.softmax(torch.movedim(fk, 1, -1), dim=-1)  # (S, MB, C)
+        y = torch.multinomial(probs.reshape(-1, probs.shape[-1]), 1,
+                              generator=rng)
+        y = y.reshape(S, 1, -1).to(fk.dtype)
+    else:
+        C_y = noise_variance(lik, lp)                             # (Dy, 1)
+        y = fk + torch.randn(fk.shape, generator=rng, dtype=fk.dtype,
+                             device=fk.device) * torch.sqrt(C_y)[None]
+        if lik.kind == "warped":
+            y = flow_inverse(lik.warp_flow, lp["warp"], y)
+    return y.transpose(0, 1), fk, f0

@@ -2,6 +2,8 @@
 
 from __future__ import annotations
 
+import math
+
 import numpy as np
 import torch
 
@@ -48,6 +50,31 @@ class _SafeSinh(torch.autograd.Function):
 
 def safe_sinh(x):
     return _SafeSinh.apply(x)
+
+
+class _LogNdtr(torch.autograd.Function):
+    """log Phi(x) (`torch.special.log_ndtr`) with the derivative
+    phi(x)/Phi(x) = 1 / (sqrt(pi/2) erfcx(-x/sqrt(2))), finite and accurate
+    on both tails.  The derivative autograd takes for `torch.special.
+    log_ndtr` cancels two terms of size x^2/2 and is wrong below x ~ -100
+    (0 at -1e6 in fp32, inf at -1e15 in fp64, where it should be about
+    -x): a warped quadrature node there makes a Bernoulli gradient 0 * inf
+    = NaN."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        return torch.special.log_ndtr(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, = ctx.saved_tensors
+        return g / (math.sqrt(0.5 * math.pi)
+                    * torch.special.erfcx(-x / math.sqrt(2.0)))
+
+
+def log_ndtr(x):
+    return _LogNdtr.apply(x)
 
 
 def safe_exp(x):

@@ -13,6 +13,11 @@ Typical use:
     out = predictor.predict(Xq)                  # moments + 95% bands
     out = predictor.predict(Xq, samples=200)     # + predictive samples
     lp  = predictor.log_prob(Xq, Yq)             # total log-density
+
+A classification model answers {"probs": (n, C)}, one `marginal_qf` a
+request.  A warped-GP model's moments, samples and bands come back in data
+units through the warp's inverse (Newton's method for a warp without an
+analytic one).
 """
 
 from __future__ import annotations
@@ -114,11 +119,13 @@ class Predictor:
         X3 = tgp_mod._ensure_3d(self.spec, self._to_device(Xp))
         spec, params = self.spec, self.params
         gen = (self._next_generator()
-               if samples or quantiles or self.fully_bayesian else None)
+               if samples or quantiles or self._needs_rng else None)
         qf = tgp_mod.marginal_qf(spec, params, X3)
         m1, m2, _, _ = tgp_mod.predictive_distribution(
             spec, params, X3, S_MC=self.S_MC,
             fully_bayesian=self.fully_bayesian, rng=gen, qf=qf)
+        if m2 is None:              # classification: probabilities (MB, C)
+            return m1, None, n, 0, None
         parts, y = [m1, m2], None
         if samples or quantiles:
             y, _, _ = tgp_mod.sample_predictive(spec, params, X3, samples or 200,
@@ -131,10 +138,17 @@ class Predictor:
                 y = None
         return torch.stack(parts), y, n, samples, quantiles
 
+    @property
+    def _needs_rng(self) -> bool:
+        return (self.fully_bayesian
+                or self.spec.likelihood.kind == "categorical")
+
     def _materialize(self, handle, host):
         """Scale one request's host copies (packed, samples) to data units."""
         _, _, n, samples, quantiles = handle
         packed, y = host
+        if self.spec.likelihood.is_classification:
+            return {"probs": packed[:n]}
         ystd, ymean = self.Y_std[:, None], self.Y_mean[:, None]
         packed = packed[..., :n]
         out = {"mean": packed[0] * ystd + ymean, "var": packed[1] * ystd ** 2}
@@ -150,7 +164,8 @@ class Predictor:
         """Predictive moments (original data scale) + optional sample-based
         quantile bands.
 
-        Returns dict(mean (Dy,n), var, lower, upper[, samples (Dy,S,n)]).
+        Returns dict(mean (Dy,n), var, lower, upper[, samples (Dy,S,n)]);
+        for classification dict(probs (n, C)).
         """
         h = self._dispatch(X, samples, quantiles)
         host = tuple(None if a is None else a.cpu().numpy() for a in h[:2])
@@ -184,6 +199,6 @@ class Predictor:
             self.spec, self.params, self._to_device(Xp),
             self._to_device(np.ascontiguousarray(Y)), self._Y_std_dev,
             S_MC=self.S_MC, fully_bayesian=self.fully_bayesian,
-            rng=self._next_generator() if self.fully_bayesian else None,
+            rng=self._next_generator() if self._needs_rng else None,
             reduce=False)
         return lpp[..., :n].sum(dim=-1).cpu().numpy()

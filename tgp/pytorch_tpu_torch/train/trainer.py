@@ -20,6 +20,9 @@ package's `train/trainer.py`.
     the Trainer's one device `torch.Generator`; after training, hypernet
     batch-norm statistics are recalibrated on the training inputs.
     `fully_bayesian` evaluates with S_MC = S_test hypernet draws.
+  * Classification (Bernoulli and categorical likelihoods): labels are the
+    Y column; evaluation reports logL, accuracy and the calibration
+    measures (ECE, MCE, Brier, NLL) instead of rmse and coverage.
 
 Not ported yet: natural gradients and L-BFGS (ROADMAP Queue 1 item 19),
 meshes, checkpoints and evaluation on another device (item 20), the
@@ -39,7 +42,7 @@ from ..models import tgp as tgp_mod
 from ..models.tgp import TGPSpec
 from ..weights import tree_leaves, tree_map
 from . import group_adam as GA
-from .metrics import inside_95
+from .metrics import calibration_measures, inside_95
 from .optimizers import build_grouped_optimizer, param_paths
 
 
@@ -351,8 +354,13 @@ class Trainer:
         """(log p(Y|X) (Dy,), predictive mean (Dy, MB), whether each Y lies
         inside its 95% band of S_test predictive samples (Dy, MB)).  Two
         `marginal_qf` calls: the log-likelihood's and the one that the
-        moments and the samples share."""
+        moments and the samples share.
+
+        Classification: (log p(Y|X) (1,), class probabilities (MB, C), None),
+        with the same two calls; one predictive sample is drawn, as the JAX
+        Trainer draws it (JAX `train/trainer.py:888-895`), and not read."""
         spec, params = self.spec, self.params
+        is_class = spec.likelihood.is_classification
         fb = dict(S_MC=self.S_test if self.fully_bayesian else 1,
                   fully_bayesian=self.fully_bayesian, rng=self._gen)
         log_p = tgp_mod.test_log_likelihood(spec, params, X, Y, self._Y_std_dev,
@@ -360,12 +368,34 @@ class Trainer:
         X3 = tgp_mod._ensure_3d(spec, X)
         qf = tgp_mod.marginal_qf(spec, params, X3)
         m1 = tgp_mod.predictive_distribution(spec, params, X3, qf=qf, **fb)[0]
-        samples = tgp_mod.sample_predictive(spec, params, X3, self.S_test,
-                                            self._gen, self.fully_bayesian,
-                                            qf=qf)[0]
+        samples = tgp_mod.sample_predictive(
+            spec, params, X3, 1 if is_class else self.S_test, self._gen,
+            self.fully_bayesian, qf=qf)[0]
+        if is_class:
+            return log_p, m1, None
         return log_p, m1, inside_95(samples, Y.T, dim=1)
 
+    def _class_metrics_for_loader(self, loader):
+        """logL (1,), accuracy and calibration over a loader (JAX
+        `train/trainer.py:911-967`)."""
+        ElogL, correct, tot = np.zeros(1), 0.0, 0
+        all_probs, all_labels = [], []
+        for X, Y in loader:
+            log_p, probs, _ = self._eval_batch(self._put(X), self._put(Y))
+            probs = probs.cpu().numpy()
+            labels = np.asarray(Y).reshape(-1)
+            ElogL[0] += log_p.cpu().numpy().sum()
+            correct += (np.argmax(probs, axis=-1) == labels).sum()
+            all_probs.append(probs)
+            all_labels.append(labels)
+            tot += X.shape[0]
+        return {"logL": ElogL / tot, "acc": correct / tot,
+                "calibration": calibration_measures(
+                    np.concatenate(all_probs), np.concatenate(all_labels))}
+
     def _metrics_for_loader(self, loader):
+        if self.spec.likelihood.is_classification:
+            return self._class_metrics_for_loader(loader)
         Dy = self.spec.Dy
         ElogL, sq_err, coverage = np.zeros(Dy), np.zeros(Dy), np.zeros(Dy)
         tot = 0
@@ -379,8 +409,8 @@ class Trainer:
                 "coverage": coverage / tot}
 
     def compute_metrics(self):
-        """Full-split metrics (logL, rmse, coverage per output) for
-        train/valid/test."""
+        """Full-split metrics for train/valid/test: logL, rmse and coverage
+        per output, or for classification logL, acc and calibration."""
         if self.eval_device is not None:
             raise NotImplementedError("eval_device is not ported yet (ROADMAP "
                                       "Queue 1 item 20)")
