@@ -70,6 +70,18 @@ Phases, each of which fails the run (non-zero exit) on any error:
      served (`{"probs"}`, 1 launch a request) against the CPU's
      `Predictor`.  Phases 6-9 check 1 forward launch and 1 backward call a
      training step, 2 forward launches an evaluation batch.
+ 10. model surface: the spectral-mixture forecast's SVGP
+     (`experiments.sm_timeseries.run`, two Periodic x ScaleRBF components:
+     2 forward launches and 2 backward calls a step, one per rbf leaf), an
+     unwhitened TGP on boston at M=100 (its KL reuses marginal_qf's K_zz:
+     1 and 1 a step) and per-output flows at Dy=2, 200 epochs in fp64 on
+     the card against the CPU; the unwhitened model's full covariance
+     (diagonal=False: the pair and K_xx, 2 launches); fast solves at
+     solve precision 'high' (TF32) and 'default' (bf16 operands) against
+     'highest' in fp32 at power M=100 and M=256 (K_zz's factor bitwise
+     equal, the moments and the ELBO's gradient moved, 1 and 1 a step);
+     the step times of trsm/highest, fast/highest, fast/high and
+     fast/default at both M.
 The line before the last holds the kernels' JSON record, the last line
 `{"ok": true, "device": {...}}`.  Details go to chiprun_out/chip_smoke.json.
 """
@@ -243,6 +255,17 @@ KERNEL_SHAPES = [  # (label, Dy, N, M, Dx, dtype, pair)
     ("pair 4096+100 Dx=13 fp32", 1, 4096, 100, 13, F32, True),
     ("pair 455+20 Dx=13 fp64", 1, 455, 20, 13, F64, True),
     ("pair 51+20 Dx=13 fp64", 1, 51, 20, 13, F64, True),
+    # the model surface (phase 10): each rbf leaf of the spectral-mixture
+    # forecast (Dx=1, M=50; 1008 training and 336 forecast hours), the
+    # per-output flows' Gram at Dy=2 (boston, M=50), the unwhitened model's
+    # full covariance K_xx (boston's 51 test rows; fp64), and the solve arms
+    # at power M=256 (fp32)
+    ("pair 1008+50 Dx=1 fp64", 1, 1008, 50, 1, F64, True),
+    ("pair 336+50 Dx=1 fp64", 1, 336, 50, 1, F64, True),
+    ("pair 455+50 Dy=2 Dx=13 fp64", 2, 455, 50, 13, F64, True),
+    ("pair 51+50 Dy=2 Dx=13 fp64", 2, 51, 50, 13, F64, True),
+    ("K_xx 51x51 Dx=13 fp64", 1, 51, 51, 13, F64, False),
+    ("pair 8611+256 fp32", 1, 8611, 256, 4, F32, True),
 ]
 # more rows than the earlier kernel's grid took (65535 tiles of 32)
 BIG_GRAM = ("K_xz 2200000x8 Dx=1 fp32", 1, 2_200_000, 8, 1, F32)
@@ -902,14 +925,17 @@ def held_gaps(vals, pairs, group, limits, tag, checks):
 def main_path_checks(sm, checks, counts):
     """A card run's kernel calls: 1 forward launch and 1 backward call per
     training step, 2 forward launches per evaluation batch (point and
-    fully-Bayesian), none elsewhere (an anchor fit), and the counts from 0
-    equal to the calls the run saw; the counts are summed into `counts`."""
+    fully-Bayesian), none elsewhere (an anchor fit), each times the
+    kernel's rbf leaves (`rbf_leaves`, 1 when absent), and the counts from
+    0 equal to the calls the run saw; the counts are summed into `counts`."""
     kc, n_eval = sm["kernel_calls"], sm["eval_batches"]
+    k_rbf = sm.get("rbf_leaves", 1)     # a launch per rbf leaf of the kernel
     counts["launches"] += sm["counts"][0]
     counts["bwd_launches"] += sm["counts"][1]
     for k, calls in kc.items():
-        want = ((sm["steps"], sm["steps"]) if k == "train" else
-                (2 * n_eval, 0) if k in ("eval", "eval_bayes") else (0, 0))
+        want = ((k_rbf * sm["steps"], k_rbf * sm["steps"]) if k == "train" else
+                (2 * k_rbf * n_eval, 0) if k in ("eval", "eval_bayes")
+                else (0, 0))
         checks.append((calls == want, f"{sm['tag']}: {k} {calls} kernel calls, "
                        f"{sm['steps']} training steps, {n_eval} evaluation "
                        f"batches"))
@@ -2095,6 +2121,434 @@ def classification_phase(dev):
     return result
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the model surface
+# ---------------------------------------------------------------------------
+
+SURF_EPOCHS = 200         # training epochs of the three fp64 runs
+SURF_EARLY = 30           # the forecast's epochs held leaf by leaf
+SURF_M = {"sm": 50, "unwhitened": 100, "per_output": 50}
+SURF_KINDS = ("sm", "unwhitened", "per_output")
+# The runs on the card against the CPU in fp64, relative to the largest
+# entry of the CPU's run ('flow': the largest gap over the flows' leaves):
+# 10x the gaps measured on an NVIDIA H100 80GB HBM3 at 700 W.  The
+# forecast is chaotic: the CPU's run from a start scaled by 1 + 1e-15
+# parts from the unscaled one between epochs 30 and 66 (1.1e-2 in the
+# curve), as the card's does (1.8e-2), so its 200 epochs are logged and
+# its first SURF_EARLY held.  The unwhitened model applies K_zz^{-1}
+# (condition number ~1e8) where the whitened one applies L^{-1}: card and
+# CPU part by 2.7e-9 in the ELBO after one step and 8.2e-6 after 200, q_L
+# (its entries whose gradient is rounding noise, stepped by Adam at the
+# learning rate) by 9.0e-3, while the moved CPU start stays within 3e-11.
+SURF_LIMITS = {
+    "sm": None,
+    "sm early": {
+        "curve": 1.9e-08, "kld": 3.7e-10, "Z": 4.3e-08,
+        "kernel/children/0/children/0/raw_lengthscale": 8.2e-09,
+        "kernel/children/0/children/0/raw_period": 1.1e-09,
+        "kernel/children/0/children/1/child/raw_lengthscale": 8.4e-09,
+        "kernel/children/0/children/1/raw_outputscale": 5.6e-09,
+        "kernel/children/1/children/0/raw_lengthscale": 2.5e-09,
+        "kernel/children/1/children/0/raw_period": 6.9e-08,
+        "kernel/children/1/children/1/child/raw_lengthscale": 2.3e-09,
+        "kernel/children/1/children/1/raw_outputscale": 5.7e-09,
+        "likelihood/log_var_noise": 1.7e-09, "q_L": 1.6e-07, "q_mu": 1.1e-07,
+        "test/logL": 6.9e-08, "test/rmse": 5.4e-08},
+    "unwhitened": {
+        "curve": 8.3e-05, "kld": 7.7e-04, "Z": 2.1e-04, "flow": 1.1e-04,
+        "kernel/child/raw_lengthscale": 1.3e-05,
+        "kernel/raw_outputscale": 2.5e-05, "likelihood/log_var_noise": 2.1e-06,
+        "q_L": 9.0e-02, "q_mu": 2.1e-04, "train/logL": 2.4e-04,
+        "train/rmse": 7.2e-04, "test/logL": 7.0e-04, "test/rmse": 1.7e-03},
+    "per_output": {
+        "curve": 2.9e-07, "kld": 3.7e-08, "Z": 1.4e-05, "flow": 1.9e-06,
+        "kernel/child/raw_lengthscale": 6.8e-08,
+        "kernel/raw_outputscale": 3.5e-08, "likelihood/log_var_noise": 1.3e-08,
+        "q_L": 4.8e-05, "q_mu": 6.9e-07, "train/logL": 8.1e-06,
+        "train/rmse": 7.7e-06, "test/logL": 8.7e-05, "test/rmse": 3.8e-05},
+}
+# marginal_qf's full covariance (diagonal=False) of the trained unwhitened
+# model on boston's 51 test rows, the card against the CPU on the same
+# parameters, relative to the largest entry (fp64): 10x the measured gap
+FULL_COV_LIMIT = 1.7e-12
+SOLVE_MS = (100, 256)     # power M=100 (the flagship) and M=256
+SOLVE_MODES = ("highest", "high", "default")
+SOLVE_ARMS = (("trsm", "highest"), ("fast", "highest"), ("fast", "high"),
+              ("fast", "default"))
+# fp32, fast_solves: 'high' and 'default' against 'highest' on the same
+# parameters, relative to the largest entry of 'highest' (mu, var; the
+# ELBO's gradient: the largest over the leaves of each leaf's gap relative
+# to its largest entry): 10x the gaps measured on an NVIDIA H100 80GB HBM3
+# at 700 W.  'high' (three TF32 passes) is fp32 rounding amplified by
+# K_zz's conditioning; 'default' (one bf16 pass) moves the moments by as
+# much as their largest entry, as the TPU's one bf16 pass would.
+PREC_LIMITS = {
+    (100, "high"): dict(mu=1.3e-3, var=4.5e-4, grad=1.3e-2),
+    (100, "default"): dict(mu=15.0, var=8.2, grad=63.0),
+    (256, "high"): dict(mu=5.2e-3, var=2.7e-3, grad=2.7e-1),
+    (256, "default"): dict(mu=53.0, var=8.0, grad=630.0),
+}
+
+
+def surface_model(kind, device):
+    """(spec, params, loaders, Y_std) of phase 10's fp64 runs, in the
+    configured precision:
+      * 'unwhitened': boston split 1 (455 training rows, Dx=13), SAL(2)
+        flow, scale-RBF ARD, whiten=False, M=100 k-means centers, q(U)
+        variance 1e-5, lengthscale and output scale 2, noise 0.05;
+      * 'per_output': boston's inputs with two targets, y and
+        y^3/3 + y/2 (z-scored), SAL(1) on output 0 and ArcSL(1) on
+        output 1 (`flow_per_output`, the JAX package's
+        tests/test_hetero_flows.py flows), M=50, the Gram at Dy=2."""
+    from tgp.pytorch_tpu_torch import config as cfg
+    from tgp.pytorch_tpu_torch.data import (ArrayDataset, DataLoader,
+                                            kmeans_centers, return_dataset)
+    from tgp.pytorch_tpu_torch.flows import generators as G, spec_from_list
+    from tgp.pytorch_tpu_torch.likelihoods import LikelihoodSpec
+    from tgp.pytorch_tpu_torch.models import tgp as PM
+    from tgp.pytorch_tpu_torch.ops import kernels as K
+
+    loaders, dc = return_dataset("boston", 10000, seed=1)
+    M = SURF_M[kind]
+    Z0 = kmeans_centers(dc["X_tr"], M, n_init=10, seed=cfg.config_seed)
+    np.random.seed(cfg.config_seed)
+    common = dict(Dx=dc["Dx"], M=M, N=float(dc["N_tr"]),
+                  kernel=K.from_name("scale_rbf"))
+    if kind == "unwhitened":
+        fspec, finits = spec_from_list(G.SAL(2))
+        spec = PM.TGPSpec(Dy=1, likelihood=LikelihoodSpec(
+            "gaussian_flow", 1, quad_points=cfg.quad_points), flow=fspec,
+            whiten=False, **common)
+        Y_std = dc["Y_std"]
+    else:
+        s0, i0 = spec_from_list(G.SAL(1))
+        s1, i1 = spec_from_list(G.ArcSL(1))
+        finits = [i0, i1]
+        spec = PM.TGPSpec(Dy=2, likelihood=LikelihoodSpec(
+            "gaussian_flow", 2, quad_points=cfg.quad_points), flow=s0,
+            flow_per_output=(s0, s1), **common)
+
+        def two(Y):
+            y2 = Y ** 3 / 3 + Y / 2
+            return np.concatenate([Y, (y2 - mu2) / sd2], axis=1)
+
+        y2 = dc["Y_tr"] ** 3 / 3 + dc["Y_tr"] / 2
+        mu2, sd2 = y2.mean(), y2.std()
+        loaders = [DataLoader(ArrayDataset(ld.dataset.X, two(ld.dataset.Y)),
+                              ld.batch_size, shuffle=ld.shuffle)
+                   for ld in loaders]
+        Y_std = np.ones(2)
+    params = PM.init_tgp_params(
+        spec, dc["X_tr"], Z0, variance_scale=1e-5,
+        kernel_init={"length_scale": 2.0, "kernel_scale": 2.0},
+        noise_init=0.05, flow_inits=finits, device=device)
+    return spec, params, loaders, Y_std
+
+
+def surface_run(kind, precision, platform, epochs=SURF_EPOCHS):
+    """One of phase 10's runs as the main path, its counts from 0: 'sm' is
+    `experiments.sm_timeseries.run('spectral_mixture')` (the forecast's
+    1008 training and 336 forecast hours, M=50, two Periodic x ScaleRBF
+    components: 2 launches each way a step); the others train
+    `surface_model`'s model with Adam at lr 0.01, full batch, then evaluate.
+    Returns the Trainer and its summary (host values only)."""
+    from tgp.pytorch_tpu_torch import config as cfg
+    from tgp.pytorch_tpu_torch.experiments import sm_timeseries as S
+    from tgp.pytorch_tpu_torch.ops import rbf_gram as R
+    from tgp.pytorch_tpu_torch.train import Trainer
+
+    device = torch.device("cuda", 0) if platform == "gpu" else torch.device("cpu")
+    t0 = time.perf_counter()
+    cfg.set_precision(precision)
+    try:
+        if kind == "sm":
+            # --- the main path: counts from 0 --------------------------------
+            R.LAUNCHES = R.BWD_LAUNCHES = 0
+            run = S.run("spectral_mixture", epochs, device=device)
+            counts = (R.LAUNCHES, R.BWD_LAUNCHES)
+            # -------------------------------------------------------------------
+            tr, metrics, kc = run.trainer, {"test": run.metrics}, run.kernel_calls
+        else:
+            spec, params, loaders, Y_std = surface_model(kind, device)
+            tr = Trainer(spec, params, loaders, Y_std, device=device)
+            # --- the main path: counts from 0 --------------------------------
+            R.LAUNCHES = R.BWD_LAUNCHES = 0
+            tr.train(epochs, 0.01, "adam", verbose_each=0)
+            trained = (R.LAUNCHES, R.BWD_LAUNCHES)
+            metrics = tr.compute_metrics()
+            counts = (R.LAUNCHES, R.BWD_LAUNCHES)
+            # -------------------------------------------------------------------
+            kc = {"train": trained,
+                  "eval": tuple(b - a for a, b in zip(trained, counts))}
+    finally:
+        cfg.set_precision("fp32")
+    values = {"curve": np.asarray(tr.loss_curve, np.float64),
+              "kld": np.asarray(tr.kld_curve, np.float64)}
+    values.update((n, t.detach().double().cpu().numpy())
+                  for n, t in named_leaves(tr.params))
+    for split, m in metrics.items():
+        for k in ("logL", "rmse"):
+            values[f"{split}/{k}"] = np.asarray(m[k], np.float64)
+    return tr, dict(
+        tag=f"{kind} {precision} on the {'card' if platform == 'gpu' else 'CPU'}",
+        platform=platform, values=values, kernel_calls=kc, counts=counts,
+        rbf_leaves=2 if kind == "sm" else 1,
+        steps=len(tr.loss_curve) * len(tr.train_loader),
+        eval_batches=len(tr.train_loader) + len(tr.test_loader),
+        device=tr.params["Z"].device.type,
+        metrics={s: {k: np.asarray(v[k], np.float64).tolist()
+                     for k in ("logL", "rmse")} for s, v in metrics.items()},
+        seconds=time.perf_counter() - t0)
+
+
+def full_cov_check(dev, tr, checks, counts):
+    """marginal_qf(diagonal=False) of the trained unwhitened model on its
+    test rows: K_xz, K_zz and K_xx, 2 forward launches, against the CPU on
+    the same parameters (fp64)."""
+    from tgp.pytorch_tpu_torch import config as cfg
+    from tgp.pytorch_tpu_torch.models import tgp as PM
+    from tgp.pytorch_tpu_torch.ops import rbf_gram as R
+    from tgp.pytorch_tpu_torch.weights import tree_map
+
+    X = tr.test_loader.dataset.X
+    cfg.set_precision("fp64")
+    try:
+        out = {}
+        for device in (dev, torch.device("cpu")):
+            p = tree_map(lambda t: t.detach().to(device), tr.params)
+            Xd = torch.as_tensor(X, dtype=torch.float64, device=device)
+            # --- the main path: counts from 0 --------------------------------
+            R.LAUNCHES = R.BWD_LAUNCHES = 0
+            mu, cov = PM.marginal_qf(tr.spec, p, Xd, diagonal=False)
+            torch.cuda.synchronize()
+            out[device.type] = ((R.LAUNCHES, R.BWD_LAUNCHES), mu.cpu(), cov.cpu())
+            # -------------------------------------------------------------------
+    finally:
+        cfg.set_precision("fp32")
+    calls = out["cuda"][0]
+    counts["launches"] += calls[0]
+    checks.append((calls == (2, 0), f"full covariance: {calls} kernel calls, "
+                   "expected (2, 0)"))
+    gap = max(float((a - b).abs().max() / b.abs().max())
+              for a, b in zip(out["cuda"][1:], out["cpu"][1:]))
+    shape = tuple(out["cuda"][2].shape)
+    log(f"model surface full covariance {shape}: card vs CPU {gap:.3e}")
+    checks.append((shape == (1, X.shape[0], X.shape[0]), f"full cov {shape}"))
+    checks.append((gap <= FULL_COV_LIMIT, f"full covariance gap {gap}"))
+    return dict(gap=gap, calls=calls, shape=shape)
+
+
+def solve_precision_check(dev, checks, counts):
+    """fp32, fast_solves at 'high' and 'default' against 'highest' on the
+    flagship's perturbed init over the 8611 power training rows at M=100
+    and M=256: the K_zz factor and jittered matrix (so the rung) that
+    marginal_qf computes inside each mode are bitwise 'highest''s; the
+    moments and the ELBO's gradient move by a recorded nonzero gap (its
+    forward and its backward take the lever); 2 forward launches and 1
+    backward call (marginal_qf, then the ELBO and its gradient)."""
+    import dataclasses
+
+    from tgp.pytorch_tpu_torch import weights
+    from tgp.pytorch_tpu_torch.data.uci import load_uci_split
+    from tgp.pytorch_tpu_torch.models import tgp as PM
+    from tgp.pytorch_tpu_torch.ops import rbf_gram as R
+
+    d = load_uci_split("power", 1)
+    X, Y = (torch.as_tensor(d[k], dtype=F32, device=dev) for k in ("X_tr", "Y_tr"))
+    result = {}
+    chol = PM.safe_cholesky
+    for M in SOLVE_MS:
+        spec = weights.flagship_spec(X.shape[0], M=M)
+        params = weights.flagship_params(spec, d["X_tr"], seed=0, device=dev,
+                                         dtype=F32)
+        res, seen = {}, {}
+        for mode in SOLVE_MODES:
+            sp = dataclasses.replace(spec, fast_solves=True, solve_precision=mode)
+            p = weights.tree_map(lambda t: t.detach().clone().requires_grad_(True),
+                                 params)
+            seen[mode] = []
+            PM.safe_cholesky = lambda A, *a, _s=seen[mode], **k: (
+                _s.append(chol(A, *a, **k)) or _s[-1])
+            try:
+                # --- the main path: counts from 0 ----------------------------
+                R.LAUNCHES = R.BWD_LAUNCHES = 0
+                mu, var = PM.marginal_qf(sp, p, X)
+                e = PM.elbo(sp, p, X, Y)[0]
+                grads = torch.autograd.grad(e, [t for _, t in named_leaves(p)])
+                torch.cuda.synchronize()
+                calls = (R.LAUNCHES, R.BWD_LAUNCHES)
+                # ---------------------------------------------------------------
+            finally:
+                PM.safe_cholesky = chol
+            counts["launches"] += calls[0]
+            counts["bwd_launches"] += calls[1]
+            checks.append((calls == (2, 1), f"solve precision M={M} {mode}: "
+                           f"{calls} kernel calls, expected (2, 1)"))
+            checks.append((not torch.backends.cuda.matmul.allow_tf32
+                           and torch.get_float32_matmul_precision() == "highest",
+                           f"solve precision M={M} {mode}: TF32 left on"))
+            res[mode] = (mu.detach(), var.detach(), grads, float(e.detach()))
+        names = [n for n, _ in named_leaves(params)]
+        out = {}
+        for mode in ("high", "default"):
+            same = all(torch.equal(L, L0) and torch.equal(A, A0)
+                       for (L, A), (L0, A0) in zip(seen[mode], seen["highest"]))
+            checks.append((same and len(seen[mode]) == 2,
+                           f"M={M} {mode}: K_zz's factor differs from 'highest'"))
+            mu, var, grads, e = res[mode]
+            mu0, var0, grads0, e0 = res["highest"]
+            g = {n: float((a - b).abs().max() / (b.abs().max() or 1.0))
+                 for n, a, b in zip(names, grads, grads0)}
+            gap = dict(mu=float((mu - mu0).abs().max() / mu0.abs().max()),
+                       var=float((var - var0).abs().max() / var0.abs().max()),
+                       grad=max(g.values()), elbo=abs(e - e0) / abs(e0))
+            log(f"solve precision M={M} fast/{mode} vs fast/highest: mu "
+                f"{gap['mu']:.3e}, var {gap['var']:.3e}, ELBO {gap['elbo']:.3e}, "
+                f"gradient {gap['grad']:.3e} (largest: "
+                f"{max(g, key=g.get)}); K_zz factor bitwise equal: {same}")
+            for k in ("mu", "var", "grad"):
+                checks.append((gap[k] > 0.0, f"M={M} {mode}: {k} did not move"))
+            lim = PREC_LIMITS[M, mode]
+            for k in ("mu", "var", "grad"):
+                checks.append((gap[k] <= lim[k],
+                               f"M={M} {mode} {k}: {gap[k]} (limit {lim[k]})"))
+            out[mode] = dict(gap, grad_by_leaf=g, factor_equal=same)
+        result[M] = out
+    return result
+
+
+def solve_arm_timing(dev, checks, counts):
+    """A training step's time for the four solve arms (trsm/highest,
+    fast/highest, fast/high, fast/default) on the 8611 power rows in fp32
+    at M=100 and M=256 (`bench.flagship_trainer`'s model at M), one
+    Trainer for each M with its spec swapped between arms; the arms run
+    in the order 1 2 3 4 4 3 2 1, each 3 x 10 steps, the median of the 6;
+    1 forward launch and 1 backward call a step in every arm."""
+    import dataclasses
+
+    from tgp.pytorch_tpu_torch import weights
+    from tgp.pytorch_tpu_torch.data import return_dataset
+    from tgp.pytorch_tpu_torch.ops import rbf_gram as R
+    from tgp.pytorch_tpu_torch.train import Trainer
+
+    loaders, d = return_dataset("power", 10000, seed=1)
+    out = {}
+    for M in SOLVE_MS:
+        spec = dataclasses.replace(weights.flagship_spec(d["X_tr"].shape[0], M=M),
+                                   min_var=1e-8)
+        tr = Trainer(spec, weights.flagship_init(spec, d["X_tr"],
+                                                 variance_scale=1e-5, device=dev),
+                     loaders, d["Y_std"], device=dev)
+        tr.train(20, 0.01, "adam", verbose_each=0)
+        times = {arm: [] for arm in SOLVE_ARMS}
+        for arm in SOLVE_ARMS + SOLVE_ARMS[::-1]:
+            tr.spec = dataclasses.replace(spec, fast_solves=arm[0] == "fast",
+                                          solve_precision=arm[1])
+            tr.train(3, 0.01, "adam", verbose_each=0)
+            # --- the main path: counts from 0 --------------------------------
+            R.LAUNCHES = R.BWD_LAUNCHES = 0
+            for _ in range(3):
+                t0 = time.perf_counter()
+                tr.train(10, 0.01, "adam", verbose_each=0)
+                times[arm].append((time.perf_counter() - t0) / 10)
+            calls = (R.LAUNCHES, R.BWD_LAUNCHES)
+            # -------------------------------------------------------------------
+            counts["launches"] += calls[0]
+            counts["bwd_launches"] += calls[1]
+            checks.append((calls == (30, 30), f"M={M} {arm}: {calls} kernel "
+                           "calls in 30 steps"))
+        rows = {}
+        for arm in SOLVE_ARMS:
+            tr.spec = dataclasses.replace(spec, fast_solves=arm[0] == "fast",
+                                          solve_precision=arm[1])
+            prof = profile_device(lambda: tr.train(10, 0.01, "adam",
+                                                   verbose_each=0))
+            step_ms = 1e3 * float(np.median(times[arm]))
+            busy = prof["device_busy_ms"] / 10
+            rows["/".join(arm)] = dict(step_ms=step_ms, steps_ms=times[arm],
+                                       device_ops=prof["device_ops"] / 10,
+                                       device_busy_ms=busy,
+                                       top_ms=prof["top_ms"][:4])
+            log(f"solve arm M={M} {'/'.join(arm):13s} step {step_ms:.3f} ms "
+                f"(median of 6 x 10), {prof['device_ops'] / 10:.1f} device ops, "
+                f"busy {busy:.3f} ms; top: " + "; ".join(
+                    f"{n[:40]} {ms * 100:.1f} us" for n, ms in prof["top_ms"][:3]))
+        checks.append((np.isfinite(tr.loss_curve).all(), f"M={M} arms: ELBO"))
+        out[M] = rows
+    return out
+
+
+def surface_phase(dev):
+    """The rest of the model surface on the card: the spectral-mixture
+    forecast's SVGP (two Periodic x ScaleRBF components, the Gram pair at
+    Dx=1 once a component: 2 launches each way a step), an unwhitened TGP
+    on boston at M=100 (its KL takes marginal_qf's K_zz: 1 and 1 a step),
+    and per-output flows at Dy=2, each 200 epochs in fp64 on the card
+    against the CPU, beside the CPU's run from a start scaled by 1 + 1e-15
+    (the forecast, whose runs part within tens of epochs, also after
+    SURF_EARLY); the unwhitened model's full covariance (2 forward launches);
+    the solve-precision lever in fp32 at power M=100 and 256; the four
+    solve arms' step times, and the forecast's and the unwhitened model's.
+    The CPU's runs go to 3 worker processes."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    result, checks = {}, []
+    counts = {"launches": 0, "bwd_launches": 0}
+    runs_of = {k: (k, SURF_EPOCHS) for k in SURF_KINDS}
+    runs_of["sm early"] = ("sm", SURF_EARLY)
+    with ProcessPoolExecutor(
+            max_workers=3, mp_context=multiprocessing.get_context("spawn")) as pool:
+        futures = {}
+        for label, (k, epochs) in runs_of.items():
+            futures[label, "cpu64"] = pool.submit(_job, surface_run, k, "fp64",
+                                                  "cpu", epochs)
+            futures[label, "cpu64_ulp"] = pool.submit(
+                _job, surface_run, k, "fp64", "cpu", epochs, init_rel=ULP_REL)
+        runs, summ = {}, {}
+        for label, (k, epochs) in runs_of.items():
+            runs[label], summ[label, "gpu64"] = surface_run(k, "fp64", "gpu",
+                                                            epochs)
+        result["full_cov"] = full_cov_check(dev, runs["unwhitened"], checks,
+                                            counts)
+        result["solve_precision"] = solve_precision_check(dev, checks, counts)
+        summ.update({key: f.result() for key, f in futures.items()})
+    # timed with the host's cores free of the CPU runs
+    result["solve_arms"] = solve_arm_timing(dev, checks, counts)
+    result["step_timing"] = {
+        "sm": step_timing(runs["sm"], "fp64", "model surface forecast fp64",
+                          clip_norm=100.0),
+        "unwhitened": step_timing(runs["unwhitened"], "fp64",
+                                  "model surface unwhitened boston TGP fp64")}
+
+    gaps, course = {}, {}
+    pairs = {"gpu64_vs_cpu64": ("gpu64", "cpu64"),
+             "cpu64_ulp_vs_cpu64": ("cpu64_ulp", "cpu64")}
+    for label in runs_of:
+        sm = summ[label, "gpu64"]
+        log(f"model surface {label} {sm['tag']}: test {sm['metrics']['test']}; "
+            f"kernel calls {sm['kernel_calls']} ({sm['seconds']:.1f} s); CPU "
+            f"{summ[label, 'cpu64']['metrics']['test']}, moved start "
+            f"{summ[label, 'cpu64_ulp']['metrics']['test']}")
+        main_path_checks(sm, checks, counts)
+        vals = {p: summ[label, p]["values"] for p in ("gpu64", "cpu64", "cpu64_ulp")}
+        checks.append((all(np.isfinite(v).all() for v in sm["values"].values()),
+                       f"{sm['tag']}: finite curves, parameters, metrics"))
+        tag = f"model surface {label}"
+        course[label] = curve_course(vals, ("gpu64", "cpu64_ulp"), tag)
+        lim = SURF_LIMITS[label]
+        gaps[label] = held_gaps(vals, pairs, exp_group,
+                                {} if lim is None else {"gpu64_vs_cpu64": lim},
+                                tag, checks)
+    result.update(gaps=gaps, curve_course=course, metrics={
+        f"{k} {p}": summ[k, p]["metrics"] for k in runs_of
+        for p in ("gpu64", "cpu64", "cpu64_ulp")}, seconds={
+        summ[key]["tag"]: summ[key]["seconds"] for key in summ}, **counts)
+    for cond, msg in checks:
+        check(cond, msg)
+    return result
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -2134,8 +2588,11 @@ def main() -> int:
     t0 = time.perf_counter()
     classification = classification_phase(dev)
     log(f"classification phase {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    surface = surface_phase(dev)
+    log(f"model surface phase {time.perf_counter() - t0:.1f} s")
     paths = (serving, serving["bayes"], grad, training, experiment, idtgp, wgp,
-             classification)
+             classification, surface)
 
     fp32_rows = [r for r in rows if "fp32" in r["shape"]]
     train = next(r for r in rows if r["shape"] == "pair 8611+100 fp32")
@@ -2163,7 +2620,8 @@ def main() -> int:
         cuda=torch.version.cuda, build_s=build_s, kernel_rows=rows,
         big_gram=big, serving=serving, gradient=grad, training=training,
         experiment=experiment, id_tgp=idtgp, wgp=wgp,
-        classification=classification, record=record), indent=1,
+        classification=classification, surface=surface, record=record),
+        indent=1,
         default=_jsonable))
 
     log(smi)

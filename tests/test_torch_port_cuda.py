@@ -470,3 +470,194 @@ def test_categorical_step_goes_through_both_kernels_once(dev, monkeypatch):
         out.append(_one_step(device, spec, params, X, y))
     assert out[0][0] == (1, 1) and out[1][0] == (0, 0)
     assert abs(out[0][1] - out[1][1]) <= 1e-10 * abs(out[1][1])
+
+
+# ---------------------------------------------------------------------------
+# the model surface: composite kernels, the marginal_qf branches, the solve
+# levers
+# ---------------------------------------------------------------------------
+
+def test_recursive_pair_launches_once_per_rbf_leaf(dev):
+    """A 2-component spectral mixture's `gram_pair`: 2 forward launches and,
+    through autograd, 2 backward calls; a tree without an rbf leaf none.
+    The values and gradients are the CPU's (fp64, 1e-12 and 1e-10 of the
+    largest entry)."""
+    from tgp.pytorch_tpu_torch.ops import kernels as K
+
+    rng = np.random.RandomState(0)
+    X, Z = rng.randn(1, 300, 1), rng.randn(1, 50, 1)
+    for spec, leaves in ((K.spectral_mixture(2), 2),
+                         (K.spectral_mixture(2, base="cosine"), 2),
+                         (K.product(K.periodic(), K.matern(1.5)), 0)):
+        p64 = K.init_params(spec, 1, 1, {"period": 0.7, "length_scale": 1.4},
+                            dtype=torch.float64, device="cpu")
+        out = []
+        for device in (dev, "cpu"):
+            p = weights.tree_map(lambda t: t.to(device).requires_grad_(True), p64)
+            x, z = (torch.tensor(a, device=device, requires_grad=True)
+                    for a in (X, Z))
+            before = (R.LAUNCHES, R.BWD_LAUNCHES)
+            Kxz, Kzz = K.gram_pair(spec, p, x, z)
+            fwd = R.LAUNCHES - before[0]
+            loss = (torch.sin(Kxz)).sum() + (Kzz ** 2).sum()
+            grads = torch.autograd.grad(loss, weights.tree_leaves(p) + [x, z])
+            out.append((fwd, R.BWD_LAUNCHES - before[1], Kxz, Kzz, grads))
+        assert out[0][:2] == (leaves, leaves) and out[1][:2] == (0, 0)
+        for a, b in zip(out[0][2:4], out[1][2:4]):
+            _close(a.detach(), b.detach(), 1e-12)
+        for a, b in zip(out[0][4], out[1][4]):
+            _close_scaled(a, b, 1e-10)
+
+
+def _power_model(dev, M=100):
+    """The flagship's spec at M and its perturbed init in fp32 on the card,
+    over the 8611 power training rows."""
+    from tgp.pytorch_tpu_torch.data.uci import load_uci_split
+
+    d = load_uci_split("power", 1)
+    spec = weights.flagship_spec(d["X_tr"].shape[0], M=M)
+    params = weights.flagship_params(spec, d["X_tr"], seed=0, device=dev,
+                                     dtype=torch.float32)
+    X, Y = (torch.as_tensor(d[k], dtype=torch.float32, device=dev)
+            for k in ("X_tr", "Y_tr"))
+    return spec, params, X, Y
+
+
+def _matmul_flags():
+    return (torch.backends.cuda.matmul.allow_tf32,
+            torch.get_float32_matmul_precision())
+
+
+def test_solve_precision_acts_in_both_passes_and_leaves_no_tf32(dev):
+    """`einsum_at` at 'high' (three TF32 passes) and 'default' (one pass
+    over bf16 operands) moves the product and both of its gradients off
+    'highest' on the card, a matrix-vector product too; each is the sum of
+    its rounded operands' products; the flags are those `set_precision`
+    set after every forward and backward."""
+    from tgp.pytorch_tpu_torch.ops.linalg import einsum_at
+
+    assert _matmul_flags() == (False, "highest")
+    g = torch.Generator(device=dev).manual_seed(0)
+    a = torch.randn(2, 100, 64, generator=g, device=dev)
+    b = torch.randn(2, 100, 300, generator=g, device=dev)
+    w = torch.randn(2, 64, 300, generator=g, device=dev)
+    out = {}
+    for mode in ("highest", "high", "default"):
+        x, y = a.clone().requires_grad_(True), b.clone().requires_grad_(True)
+        r = einsum_at("dmk,dmn->dkn", x, y, mode)
+        assert _matmul_flags() == (False, "highest")
+        gx, gy = torch.autograd.grad((r * w).sum(), (x, y))
+        assert _matmul_flags() == (False, "highest")
+        out[mode] = (r.detach(), gx, gy)
+    for mode in ("high", "default"):
+        for got, want in zip(out[mode], out["highest"]):
+            gap = float((got - want).abs().max() / want.abs().max())
+            assert 0.0 < gap < (1e-5 if mode == "high" else 5e-2), (mode, gap)
+    bf = [t.bfloat16().double() for t in (a, b)]
+    want = torch.einsum("dmk,dmn->dkn", *bf)
+    _close_scaled(out["default"][0].double(), want, 1e-6)
+    def tf32(t):
+        return ((t.view(torch.int32) + 0x1000) & ~0x1FFF).view(torch.float32)
+
+    (ah, al), (bh, bl) = ((tf32(t), tf32(t - tf32(t))) for t in (a, b))
+    want = sum(torch.einsum("dmk,dmn->dkn", x.double(), y.double())
+               for x, y in ((ah, bh), (ah, bl), (al, bh)))
+    _close_scaled(out["high"][0].double(), want, 1e-6)
+    # a matrix-vector product (marginal_qf's mean) takes the lever too
+    v = b[..., :1].contiguous()
+    mv = {m: einsum_at("dnm,dmo->dn", a.transpose(-1, -2).contiguous(), v, m)
+          for m in ("highest", "high")}
+    assert float((mv["high"] - mv["highest"]).abs().max()) > 0.0
+
+
+def test_solve_precision_keeps_the_factor_and_splits_in_both_passes(dev,
+                                                                   monkeypatch):
+    """fast_solves at each solve precision on the flagship at M=100 in
+    fp32: K_zz's factor and jittered matrix (so its rung) are bitwise those
+    of 'highest'; the moments and the ELBO's gradient move by a nonzero
+    amount; each step is 1 forward launch and 1 backward call; the flags
+    are restored."""
+    import dataclasses
+
+    from tgp.pytorch_tpu_torch.models import tgp as M
+
+    spec, params, X, Y = _power_model(dev)
+    seen = {}
+    chol = M.safe_cholesky
+
+    def spy(A, *a, **k):
+        out = chol(A, *a, **k)
+        seen.setdefault(mode, []).append(out)
+        return out
+
+    monkeypatch.setattr(M, "safe_cholesky", spy)
+    res = {}
+    for mode in ("highest", "high", "default"):
+        sp = dataclasses.replace(spec, fast_solves=True, solve_precision=mode)
+        p = weights.tree_map(lambda t: t.detach().clone().requires_grad_(True),
+                             params)
+        before = (R.LAUNCHES, R.BWD_LAUNCHES)
+        mu, var = M.marginal_qf(sp, p, X)
+        e = M.elbo(sp, p, X, Y)[0]
+        grads = torch.autograd.grad(e, weights.tree_leaves(p))
+        assert (R.LAUNCHES - before[0], R.BWD_LAUNCHES - before[1]) == (2, 1)
+        assert _matmul_flags() == (False, "highest")
+        res[mode] = (mu.detach(), var.detach(), grads)
+    for mode in ("high", "default"):
+        for (L, Aj), (L0, Aj0) in zip(seen[mode], seen["highest"]):
+            assert torch.equal(L, L0) and torch.equal(Aj, Aj0)
+        mu, var, grads = res[mode]
+        mu0, var0, grads0 = res["highest"]
+        assert float((mu - mu0).abs().max()) > 0.0
+        assert float((var - var0).abs().max()) > 0.0
+        assert max(float((g - g0).abs().max()) for g, g0 in zip(grads, grads0)) > 0.0
+
+
+@pytest.mark.parametrize("change, calls", [
+    (dict(whiten=False), (1, 1)), (dict(fast_solves=True), (1, 1)),
+    (dict(fast_solves=True, solve_precision="default"), (1, 1)),
+    (dict(whiten=False, mean="linear"), (1, 1))])
+def test_model_branches_step_through_both_kernels_once(dev, change, calls):
+    """A training step of the unwhitened model (its KL reuses marginal_qf's
+    K_zz), of fast solves and of a linear mean: 1 forward launch and 1
+    backward call, and the ELBO the CPU gives (fp64)."""
+    import dataclasses
+
+    from tgp.pytorch_tpu_torch.models import tgp as M
+
+    rng = np.random.RandomState(0)
+    X, Y = rng.randn(455, 13), rng.randn(455, 1)
+    spec = dataclasses.replace(weights.flagship_spec(455, Dx=13, M=50, quad=20),
+                               **change)
+    params = M.init_tgp_params(spec, X, X[:50], variance_scale=0.1,
+                               dtype=torch.float64, device="cpu")
+    gpu, cpu = _one_step(dev, spec, params, X, Y), _one_step("cpu", spec,
+                                                             params, X, Y)
+    assert gpu[0] == calls and cpu[0] == (0, 0)
+    assert abs(gpu[1] - cpu[1]) <= 1e-10 * abs(cpu[1])
+
+
+def test_full_covariance_adds_one_gram_launch(dev):
+    """marginal_qf with diagonal=False: the pair and K_xx, 2 forward
+    launches, and the CPU's covariance (fp64)."""
+    from tgp.pytorch_tpu_torch.models import tgp as M
+
+    rng = np.random.RandomState(1)
+    X = rng.randn(200, 4)
+    pcfg.set_precision("fp64")
+    try:
+        spec = weights.flagship_spec(200, M=30, quad=20)
+        params = weights.flagship_params(spec, X, seed=0, device="cpu",
+                                         dtype=torch.float64)
+        out = []
+        for device in (dev, "cpu"):
+            p = weights.tree_map(lambda t: t.to(device), params)
+            before = R.LAUNCHES
+            mu, cov = M.marginal_qf(spec, p, torch.tensor(X, device=device),
+                                    diagonal=False)
+            out.append((R.LAUNCHES - before, mu, cov))
+    finally:
+        pcfg.set_precision("fp32")
+    assert out[0][0] == 2 and out[1][0] == 0
+    _close_scaled(out[0][1], out[1][1], 1e-10)
+    _close_scaled(out[0][2], out[1][2], 1e-10)

@@ -163,10 +163,22 @@ def test_init_and_params_from_jax_and_spec_from_dict():
     (dict(mean="linear"), "item 18"),
 ])
 def test_unported_spec_parts_raise(change, item):
-    spec_j, *_ = build("sal2")
-    d = jser.spec_to_dict(dataclasses.replace(spec_j, **change))
-    with pytest.raises(NotImplementedError, match=item):
-        weights.spec_from_dict(d)
+    # item 18 is ported: the spec comes through spec_to_dict/spec_from_dict
+    # and its q(f) matches JAX's (the solve levers are 'highest' on the CPU)
+    spec_j, _, _, _, X, _, _ = build("sal2")
+    spec_j = dataclasses.replace(spec_j, **change)
+    spec_p = weights.spec_from_dict(jser.spec_to_dict(spec_j))
+    fields = ("whiten", "fast_solves", "solve_precision", "mean")
+    assert [getattr(spec_p, f) for f in fields] == \
+        [getattr(spec_j, f) for f in fields]
+    pj = JM.init_tgp_params(spec_j, X, X[:spec_j.M], variance_scale=0.4,
+                            dtype=jnp.float64)
+    pp = weights.params_from_jax(jax.tree_util.tree_map(np.asarray, pj),
+                                 device="cpu", dtype=torch.float64)
+    Xq = np.random.RandomState(9).randn(11, X.shape[1])
+    for p, j in zip(PM.marginal_qf(spec_p, pp, torch.as_tensor(Xq)),
+                    JM.marginal_qf(spec_j, pj, jnp.asarray(Xq))):
+        close(p, j)
 
 
 def test_unported_flows_and_likelihoods_raise():

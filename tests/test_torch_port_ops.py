@@ -211,8 +211,19 @@ def test_gram_and_diag_match(name):
 
 @pytest.mark.parametrize("name", ["matern32", "periodic", "whitenoise"])
 def test_unported_kernels_raise(name):
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 17"):
-        pK.from_name(name)
+    # item 17 is ported: the named kernel is the JAX package's, and its
+    # Grams (the white kernel's noise only at same=True) match JAX's
+    assert pK.from_name(name) == pK.KernelSpec(jK.from_name(name).kind)
+    X1, X2 = _gram_case()
+    init = {"length_scale": 1.3, "period": 1.7, "noisy_variance": 0.2}
+    jp = jK.init_params(jK.from_name(name), 2, 3, init, dtype=jnp.float64)
+    pp = pK.init_params(pK.from_name(name), 2, 3, init, device="cpu")
+    spec_j, spec_p = jK.from_name(name), pK.from_name(name)
+    for A, B, same in ((X1, X2, False), (X1, X1, True), (X1, X1, False)):
+        close(pK.gram(spec_p, pp, t64(A), t64(B), same=same),
+              jK.gram(spec_j, jp, jnp.asarray(A), jnp.asarray(B), same=same))
+    close(pK.gram_diag(spec_p, pp, t64(X1)),
+          jK.gram_diag(spec_j, jp, jnp.asarray(X1)))
 
 
 @pytest.mark.parametrize("shape", [(2, 96, 40, 5), (1, 131, 77, 3),

@@ -618,6 +618,19 @@ def test_unported_options_raise_and_name_their_item(option, item, monkeypatch):
     if option == "classification":
         # item 16 is ported: a Bernoulli Trainer holds the JAX one
         return _classification_matches_jax()
+    if option == "plateau_guard":
+        # item 18 is ported: the guard fires on the recorded curve (held
+        # against the JAX Trainer in tests/test_torch_port_plateau.py)
+        tr = _small_trainer()
+        tr.plateau_guard = {"window": 10, "min_rel_improve": 1e9,
+                            "max_fraction": 1.0}
+        tr.train(30, 0.01, verbose_each=0)
+        c = np.asarray(tr.loss_curve, np.float64)
+        want = (c[-10:].mean() - c[-20:-10].mean()) / abs(c[-20:-10].mean())
+        assert [e["epoch"] for e in tr.plateau_events] == [30]
+        np.testing.assert_allclose(tr.plateau_events[0]["rel_improve"], want,
+                                   rtol=1e-12)
+        return
     with pytest.raises(NotImplementedError, match=item):
         if option in ("natgrad_gamma", "natgrad_warmup"):
             _small_trainer().train(2, 0.01, **{option: 1})
@@ -631,10 +644,6 @@ def test_unported_options_raise_and_name_their_item(option, item, monkeypatch):
             tr = _small_trainer()
             tr.eval_device = "cpu"
             tr.compute_metrics()
-        elif option == "plateau_guard":
-            tr = _small_trainer()
-            tr.plateau_guard = {"window": 10}
-            tr.train(2, 0.01)
         elif option == "remat":
             tr = _small_trainer()
             tr.spec = dataclasses.replace(tr.spec, remat=True)

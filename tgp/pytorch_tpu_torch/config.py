@@ -9,12 +9,23 @@ Precision policy:
   * 'fp32' — float32 everywhere; the default on the card.
   * 'bf16' is not ported yet (ROADMAP Queue 1 item 20).
 
+Solve precision (`TGPSpec.solve_precision`), fp32 on the card only: the
+factor's applications in `marginal_qf` run as 'highest' (true fp32), 'high'
+(three TF32 tensor-core passes over the operands split into high and low
+TF32 parts, as the TPU's 'high' is three bf16 passes) or 'default' (one
+pass over operands rounded to bf16), with fp32 accumulation, in the
+forward and in the backward; see `ops.linalg.einsum_at`.  The K_zz Gram, its Cholesky and the triangular
+solves never leave true fp32.  In fp64, and on the CPU, every mode is
+'highest'.
+
 Devices: entry points take an explicit `device`; `default_device()` is CUDA
 and raises where there is none.  Nothing falls back to the CPU: a caller that
 wants the CPU says `device="cpu"`.
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import torch
 
@@ -49,6 +60,20 @@ def set_precision(mode: str) -> None:
     torch.backends.cudnn.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
     quad_points = 100
+
+
+@contextlib.contextmanager
+def tf32_matmuls():
+    """A scope in which float32 cuBLAS matmuls may use TF32 tensor cores;
+    it restores the matmul flags it found (those `set_precision` sets)."""
+    prev = (torch.get_float32_matmul_precision(),
+            torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        yield
+    finally:
+        torch.set_float32_matmul_precision(prev[0])
+        torch.backends.cuda.matmul.allow_tf32 = prev[1]
 
 
 def precision() -> str:

@@ -5,7 +5,9 @@
         --train_test_seed_split S --num_inducing M [--epochs E] \\
         [--precision fp64|fp32] [--platform gpu|cpu] \\
         [--nnet_inference MC_dropout|mean_field_gaussian] \\
-        [--warp_arch SAL|log_exp|StepTanhL] [--warp_terms K]
+        [--warp_arch SAL|log_exp|StepTanhL] [--warp_terms K] \\
+        [--fast_solves] [--solve_precision highest|high|default] \\
+        [--solve_warmup_epochs E] [--plateau_guard [warn|raise|recover]]
 
 It takes the flags of the repo's `experiments/main.py` (the JAX package's
 CLI) and does what that CLI does for these models: the UCI split, k-means
@@ -19,6 +21,14 @@ warped GP: SVGP's model with a learnable observation warp T in the
 likelihood (SAL(1); `log_exp`, y plus K softplus terms, inverted by
 Newton's method; or StepTanhL(1, K) with y added, fitted to the identity
 over the targets' range first).
+The solve levers are the JAX CLI's: `--fast_solves` (L^{-1} formed once,
+then GEMMs), `--solve_precision` (the factor's applications in fp32 on the
+card: three TF32 passes for 'high', one bf16 pass for 'default'),
+`--solve_warmup_epochs`
+(that many epochs at trsm/'highest' first, then the requested mode with
+the Adam moments carried), and `--plateau_guard` (the Trainer's stall
+detector; fast solves at a reduced precision without a warm-up turn on its
+`recover` action by default, with a WARNING line).
 Defaults are the paper's: batch 10000, 15000 epochs, lr 0.01, noise 0.05,
 lengthscale and output scale 2, q(U) variance 1e-5, whitened, fp64 with 100
 quadrature points, S_test 100.
@@ -98,11 +108,6 @@ def refusal(args):
                 "item 19)")
     levers = [
         (args.precision == "bf16", "--precision bf16", 20),
-        (args.fast_solves, "--fast_solves", 18),
-        (args.solve_precision != "highest",
-         f"--solve_precision {args.solve_precision}", 18),
-        (args.solve_warmup_epochs > 0, "--solve_warmup_epochs", 18),
-        (args.plateau_guard is not None, "--plateau_guard", 18),
         (args.natgrad is not None, "--natgrad", 19),
         (args.natgrad_force, "--natgrad_force", 19),
         (args.natgrad_warmup is not None, "--natgrad_warmup", 19),
@@ -250,7 +255,9 @@ def run(args) -> Run:
                              quad_points=cfg.quad_points)
     spec = M.TGPSpec(Dy=Dy, Dx=Dx, M=args.num_inducing, N=float(dc["N_tr"]),
                      kernel=K.from_name("scale_rbf"), likelihood=lik,
-                     flow=flow_spec, mean="zero", whiten=True)
+                     flow=flow_spec, mean="zero", whiten=True,
+                     fast_solves=args.fast_solves,
+                     solve_precision=args.solve_precision)
     params = M.init_tgp_params(
         spec, dc["X_tr"], Z0, variance_scale=1e-5, mean_scale=0.0,
         kernel_init={"length_scale": 2.0, "kernel_scale": 2.0},
@@ -280,13 +287,42 @@ def run(args) -> Run:
         specs = [[args.lr, 1e-5, "net_"], [args.lr, 0.0, "flow"]]
 
     # ---- train and evaluate --------------------------------------------------
+    warmup, spec_final = 0, spec
+    if args.solve_warmup_epochs > 0 and (
+            spec.fast_solves or spec.solve_precision != "highest"):
+        # the warm-up at trsm/'highest', then the requested solve mode with
+        # the Adam moments carried across the swap
+        warmup = min(args.solve_warmup_epochs, args.epochs)
+        spec = dataclasses.replace(spec, fast_solves=False,
+                                   solve_precision="highest")
     trainer = Trainer(spec, params, loaders, dc["Y_std"], S_test=args.S_test,
                       seed=args.train_seed, device=device)
+    plateau_action = args.plateau_guard
+    if (spec_final.fast_solves and spec_final.solve_precision != "highest"
+            and warmup == 0 and not plateau_action):
+        plateau_action = "recover"
+        print("WARNING: --fast_solves with --solve_precision="
+              f"{spec_final.solve_precision} and no --solve_warmup_epochs "
+              "reproduces a measured early-plateau stall at mid M "
+              "(PARITY.md).  Enabling the plateau guard (action='recover') "
+              "by default; pass --solve_warmup_epochs 3000 or "
+              "--plateau_guard warn to override.", flush=True)
+    if plateau_action:
+        trainer.plateau_guard = {"window": 2000, "min_rel_improve": 1e-4,
+                                 "max_fraction": 0.5,
+                                 "action": plateau_action}
     calls0 = (R.LAUNCHES, R.BWD_LAUNCHES)
     t0 = time.time()
-    trainer.train(args.epochs, args.lr, "adam",
-                  optimisation_schedule=([1.0], [specs]),
-                  verbose_each=args.verbose_each)
+    if warmup:
+        print(f"==== solve warmup: {warmup} epochs at trsm/'highest' ====")
+        trainer.train(warmup, args.lr, "adam",
+                      optimisation_schedule=([1.0], [specs]),
+                      verbose_each=args.verbose_each)
+        trainer.spec = spec_final
+    if args.epochs - warmup > 0:
+        trainer.train(args.epochs - warmup, args.lr, "adam",
+                      optimisation_schedule=([1.0], [specs]),
+                      verbose_each=args.verbose_each)
     train_time = time.time() - t0
     calls = [(R.LAUNCHES, R.BWD_LAUNCHES)]
     m = trainer.compute_metrics()

@@ -1,27 +1,34 @@
-"""Transformed Gaussian Process (TGP): the serving and training subset of the
-JAX package's `models/tgp.py`.
+"""Transformed Gaussian Process (TGP): the counterpart of the JAX package's
+`models/tgp.py`.
 
 Everything is a plain function of (spec, params): `TGPSpec` is static,
 params is a dict tree of tensors with the JAX package's layout (inducing
-locations Z, whitened q(U) (q_mu, q_L), kernel/mean/flow/likelihood
-parameters).  The JAX package's `vmap` over the Dy outputs becomes a leading
-batch dimension.
+locations Z, q(U) (q_mu, q_L), kernel/mean/flow/likelihood parameters).
+The JAX package's `vmap` over the Dy outputs becomes a leading batch
+dimension.
 
-Whitened path (the one ported):
+`marginal_qf` has the JAX package's four branches.  Whitened:
   q(f) = N( K_xz L^{-T} m + mu_x,
-            K_xx - K_xz K_zz^{-1} K_zx + K_xz L^{-T} S L^{-1} K_zx )
-with L = chol(K_zz + jitter I), S = tril(Lq) tril(Lq)^T, and only the
-diagonal of the covariance materialised.
+            K_xx - K_xz K_zz^{-1} K_zx + K_xz L^{-T} S L^{-1} K_zx );
+unwhitened (whiten=False):
+  q(f) = N( K_xz K_zz^{-1} (m - mu_z) + mu_x,
+            K_xx - K_xz K_zz^{-1} K_zx + K_xz K_zz^{-1} S K_zz^{-1} K_zx ),
+with L = chol(K_zz + jitter I), S = tril(Lq) tril(Lq)^T; each with the
+covariance's diagonal or (diagonal=False) the full (MB, MB) matrix.
+`fast_solves` forms L^{-1} once and applies it by GEMMs;
+`solve_precision` sets the precision of the factor's applications
+(`ops.linalg.einsum_at`), never of K_zz or its Cholesky.  The unwhitened
+KL takes `marginal_qf`'s K_zz and factor inside `elbo`, so a step still
+makes one Gram pair and one backward call for each rbf leaf of the kernel.
 
-Every flow kind is ported, step_flow, log_exp and the input-dependent
-(hypernet) steps included, with the VI hypernets' KL term in the ELBO and
-fully-Bayesian prediction: S_MC hypernet draws on one leading axis, one
-`marginal_qf` for all of them.  Every likelihood is ported: Gaussian,
-Gaussian through the flow, the warped GP (an observation warp T), and
-classification (Bernoulli with a Gauss-CDF link, categorical MC softmax).
-Not ported yet: whiten=False, full covariances, fast_solves, solve_precision
-levers and per-output flow architectures (item 18), and `spec.remat` (item
-21).
+Every flow kind is ported, the input-dependent (hypernet) steps included,
+with the VI hypernets' KL term in the ELBO and fully-Bayesian prediction:
+S_MC hypernet draws on one leading axis, one `marginal_qf` for all of
+them; per-output flow architectures (`flow_per_output`) loop the outputs.
+Every likelihood is ported: Gaussian, Gaussian through the flow, the
+warped GP (an observation warp T), and classification (Bernoulli with a
+Gauss-CDF link, categorical MC softmax).  Not ported yet: `spec.remat`
+(ROADMAP Queue 1 item 21).
 """
 
 from __future__ import annotations
@@ -36,8 +43,9 @@ import torch
 from .. import config as cfg
 from ..ops import kernels as kernels_mod
 from ..ops.kernels import KernelSpec
-from ..ops.linalg import (kl_whitened, safe_cholesky, tril_solve, triu_solve,
-                          tril_mask)
+from ..ops.linalg import (cholesky_solve, einsum_at, kl_gaussian,
+                          kl_whitened, safe_cholesky, tril_mask, tril_solve,
+                          triu_solve)
 from ..ops.quadrature import GaussHermite
 from ..flows.core import (
     FlowCtx,
@@ -68,9 +76,7 @@ from ..likelihoods.gaussian import (
     gaussian_flow_moments,
 )
 from ..likelihoods.warped import warped_ell, warped_moments
-from .means import check_mean, mean_init, mean_apply
-
-_TODO_QF = "is not ported yet (ROADMAP Queue 1 item 18)"
+from .means import mean_init, mean_apply
 
 
 # ===========================================================================
@@ -109,6 +115,8 @@ class TGPSpec:
 
     @property
     def has_flow(self) -> bool:
+        if self.flow_per_output is not None:
+            return any(not is_identity_spec(f) for f in self.flow_per_output)
         return not is_identity_spec(self.flow)
 
     def _any_step(self, pred) -> bool:
@@ -139,29 +147,19 @@ class TGPSpec:
 
 
 def check_spec(spec: TGPSpec) -> None:
-    """Raise NotImplementedError for any part of `spec` not ported yet."""
-    if not spec.whiten:
-        raise NotImplementedError(f"whiten=False {_TODO_QF}")
-    if spec.fast_solves:
-        raise NotImplementedError(f"fast_solves {_TODO_QF}")
-    if spec.solve_precision != "highest":
-        raise NotImplementedError(
-            f"solve_precision={spec.solve_precision!r} {_TODO_QF}")
-    if spec.flow_per_output is not None:
-        raise NotImplementedError(f"flow_per_output {_TODO_QF}")
-    check_mean(spec.mean)
+    """Raise NotImplementedError for a part of `spec` not ported yet (only
+    `remat`), ValueError for a likelihood or flow step that cannot be
+    evaluated."""
+    if spec.remat:
+        raise NotImplementedError("spec.remat (recomputation of marginal_qf and "
+                                  "the warp) is not ported yet (ROADMAP Queue 1 "
+                                  "item 21)")
     check_likelihood(spec.likelihood)
-    for step in spec.flow:
-        check_step(step)
-
-    def check_kernel(k: KernelSpec):
-        if k.kind == "scale":
-            check_kernel(k.children[0])
-        elif k.kind != "rbf":
-            raise NotImplementedError(
-                f"kernel kind {k.kind!r} is not ported yet "
-                "(ROADMAP Queue 1 item 17)")
-    check_kernel(spec.kernel)
+    flows = (spec.flow_per_output if spec.flow_per_output is not None
+             else (spec.flow,))
+    for flow in flows:
+        for step in flow:
+            check_step(step)
 
 
 # ===========================================================================
@@ -195,7 +193,8 @@ def init_tgp_params(
 ):
     """Build the full TGP parameter tree, with the JAX package's defaults.
 
-    `init_Z` is an (M, Dx) array; `X_train` is unused by the zero mean.
+    `init_Z` is an (M, Dx) array; `X_train` feeds the identity mean's
+    projection.
     `warp_inits` initialises the warped likelihood's observation warp
     (JAX `models/tgp.py:214, 257-258`).
     The flows' hypernets (one set per output) draw from one CPU generator
@@ -228,12 +227,17 @@ def init_tgp_params(
     kparams = kernels_mod.init_params(spec.kernel, nk, Dx, kernel_init, dtype,
                                       device)
     nm = 1 if spec.mean_is_shared else Dy
-    mparams = mean_init(spec.mean, nm, Dx)
+    mparams = mean_init(spec.mean, nm, Dx, X=X_train, dtype=dtype,
+                        device=device)
     lparams = init_likelihood_params(spec.likelihood, noise_init, dtype, device,
                                      warp_inits=warp_inits)
 
     gen = torch.Generator().manual_seed(cfg.config_seed)
-    if spec.has_flow and not spec.flow_is_shared:
+    if spec.flow_per_output is not None:
+        fparams = [init_flow_params(fs, None if flow_inits is None
+                                    else flow_inits[d], dtype, device, gen)
+                   for d, fs in enumerate(spec.flow_per_output)]
+    elif spec.has_flow and not spec.flow_is_shared:
         per_out = []
         for d in range(Dy):
             inits_d = flow_inits
@@ -273,16 +277,11 @@ def _ensure_3d(spec: TGPSpec, X):
     return X
 
 
-def marginal_qf(spec: TGPSpec, params, X, *, diagonal: bool = True):
-    """Moments of q(f) at locations X: (mu, var), each (Dy, MB).
-
-    Both Grams (K_xz and K_zz) come from one `gram_pair` call: one launch of
-    the CUDA kernel when the tensors lie on the card.
-    """
-    if not diagonal:
-        raise NotImplementedError(f"diagonal=False {_TODO_QF}")
+def _marginal_qf(spec: TGPSpec, params, X, diagonal: bool):
+    """`marginal_qf`, plus what the unwhitened KL needs of it: (mu, cov,
+    prior) with prior = (mu_z, K_zz, L) when whiten=False, else None."""
     check_spec(spec)
-    Dy = spec.Dy
+    Dy, M = spec.Dy, spec.M
     X = _ensure_3d(spec, X)
 
     Z = _expand(params["Z"], Dy)
@@ -297,23 +296,86 @@ def marginal_qf(spec: TGPSpec, params, X, *, diagonal: bool = True):
     Lq = tril_mask(_expand(params["q_L"], Dy))
     Kzx = Kxz.transpose(-1, -2)                       # (Dy, M, MB)
 
-    sol = triu_solve(L.transpose(-1, -2), q_mu[..., None])
-    rhs = tril_solve(L, Kzx)                          # L^{-1} K_zx
-    mu = torch.einsum("dnm,dmo->dn", Kxz, sol) + mu_x
-    A = torch.einsum("dmk,dmn->dkn", Lq, rhs)         # Lq^T rhs
-    Kxx = kernels_mod.gram_diag(spec.kernel, kp, X, same=True)
-    cov = Kxx - torch.sum(torch.square(rhs), dim=-2) \
-        + torch.sum(torch.square(A), dim=-2)
-    return mu, torch.clamp_min(cov, spec.min_var)
+    def ein(eq, a, b):
+        # the factor's applications, at the spec's solve precision
+        return einsum_at(eq, a, b, spec.solve_precision)
+
+    def kxx():
+        return (kernels_mod.gram_diag(spec.kernel, kp, X, same=True) if diagonal
+                else kernels_mod.gram(spec.kernel, kp, X, X, same=True))
+
+    prior = None
+    if spec.whiten:
+        if spec.fast_solves:
+            # one (M, M) triangular solve for L^{-1}, then GEMMs
+            eye = torch.eye(M, dtype=L.dtype, device=L.device).expand(L.shape)
+            Linv = tril_solve(L, eye)
+            sol = ein("dmk,dmo->dko", Linv, q_mu[..., None])
+            rhs = ein("dkm,dmn->dkn", Linv, Kzx)
+        else:
+            sol = triu_solve(L.transpose(-1, -2), q_mu[..., None])
+            rhs = tril_solve(L, Kzx)                  # L^{-1} K_zx
+        mu = ein("dnm,dmo->dn", Kxz, sol) + mu_x
+        A = ein("dmk,dmn->dkn", Lq, rhs)              # Lq^T rhs
+        if diagonal:
+            cov = kxx() - torch.sum(torch.square(rhs), dim=-2) \
+                + torch.sum(torch.square(A), dim=-2)
+        else:
+            sol2 = cholesky_solve(L, Kzx)
+            cov = kxx() - ein("dnm,dmk->dnk", Kxz, sol2) \
+                + ein("dmn,dmk->dnk", A, A)
+    else:
+        mu_z = mean_apply(spec.mean, mp, Z)
+        prior = (mu_z, Kzz, L)
+        lhs = cholesky_solve(L, (q_mu - mu_z)[..., None])
+        mu = ein("dnm,dmo->dn", Kxz, lhs) + mu_x
+        sol2 = cholesky_solve(L, Kzx)                 # K_zz^{-1} K_zx
+        B = ein("dmk,dmn->dkn", Lq, sol2)             # Lq^T K_zz^{-1} K_zx
+        if diagonal:
+            cov = kxx() - torch.sum(Kzx * sol2, dim=-2) \
+                + torch.sum(torch.square(B), dim=-2)
+        else:
+            cov = kxx() - ein("dnm,dmk->dnk", Kxz, sol2) \
+                + ein("dmn,dmk->dnk", B, B)
+    if diagonal:
+        cov = torch.clamp_min(cov, spec.min_var)
+    return mu, cov, prior
 
 
-def kld_qu(spec: TGPSpec, params):
-    """KL(q(U) || p(U)) per output, shape (Dy,): the whitened branch
-    (`check_spec` refuses whiten=False).  A shared q(U) is counted once per
-    output, as in the JAX package."""
+def marginal_qf(spec: TGPSpec, params, X, *, diagonal: bool = True):
+    """Moments of q(f) at locations X: (mu, cov), mu (Dy, MB) and cov
+    (Dy, MB), or (Dy, MB, MB) with diagonal=False.
+
+    K_xz and K_zz come from one `gram_pair` call (one launch of the CUDA
+    kernel for each rbf leaf when the tensors lie on the card); the full
+    covariance adds K_xx from one `gram` call.
+    """
+    return _marginal_qf(spec, params, X, diagonal)[:2]
+
+
+def kld_qu(spec: TGPSpec, params, prior=None):
+    """KL(q(U) || p(U)) per output, shape (Dy,).  A shared q(U) is counted
+    once per output, as in the JAX package.
+
+    whiten=False takes K_zz and its factor from `prior` = (mu_z, K_zz, L),
+    `_marginal_qf`'s, when given (as `elbo` gives them); without it, K_zz
+    comes from its own `gram` call, as in the JAX package."""
     check_spec(spec)
     Dy = spec.Dy
-    return kl_whitened(_expand(params["q_mu"], Dy), _expand(params["q_L"], Dy))
+    q_mu = _expand(params["q_mu"], Dy)
+    q_L = _expand(params["q_L"], Dy)
+    if spec.whiten:
+        return kl_whitened(q_mu, q_L)
+    if prior is None:
+        Z = _expand(params["Z"], Dy)
+        kp = (_expand_tree(params["kernel"], Dy) if spec.K_is_shared
+              else params["kernel"])
+        mp = (_expand_tree(params["mean"], Dy) if spec.mean_is_shared
+              else params["mean"])
+        prior = (mean_apply(spec.mean, mp, Z),
+                 kernels_mod.gram(spec.kernel, kp, Z, Z, same=False), None)
+    mu_z, Kzz, L = prior
+    return kl_gaussian(q_mu, q_L, mu_z, Kzz, L_p=L)
 
 
 # -- flow warping (batched over outputs) ------------------------------------
@@ -350,15 +412,26 @@ def _make_warp(spec: TGPSpec, params, X3=None, rng=None,
     `rng` (one mask per output and row, shared by every quadrature node);
     `draws` adds leading axes of independent draws to the hypernets'
     outputs, and so to the warped values' shape.  A shared flow uses its
-    parameters as they are.
+    parameters as they are; `flow_per_output` evaluates each output's flow
+    on its own row of f.
     """
     if not spec.has_flow:
         return lambda f: f
     fp = params["flow"]
-    if not spec.flow_is_shared:
-        fp = _per_output(fp)
     ctx = FlowCtx(rng=rng, stochastic=stochastic, train=train,
                   draws=tuple(draws))
+    if spec.flow_per_output is not None:
+        # per-output architectures: a loop over the outputs, output d's
+        # draws after output d-1's
+        def warp_each(f):
+            outs = [flow_forward(fs, fp[d], f[..., d, :],
+                                 None if X3 is None else X3[d], ctx)
+                    for d, fs in enumerate(spec.flow_per_output)]
+            return _warp_clip(torch.stack(outs, dim=-2))
+
+        return warp_each
+    if not spec.flow_is_shared:
+        fp = _per_output(fp)
 
     def warp(f):
         return _warp_clip(flow_forward(spec.flow, fp, f, X3, ctx))
@@ -383,6 +456,9 @@ def flows_kld(spec: TGPSpec, params):
     if not spec._any_step(lambda s: s.input_dependent and
                           s.hypernet.inference == "mean_field_gaussian"):
         return zero
+    if spec.flow_per_output is not None:
+        return zero + sum(flow_kld(fs, params["flow"][d])
+                          for d, fs in enumerate(spec.flow_per_output))
     return zero + flow_kld(spec.flow, params["flow"])
 
 
@@ -396,7 +472,10 @@ def finalize_batch_norm(spec: TGPSpec, params, X):
     fp = params["flow"]
     ref = params["q_mu"]
     X3 = _ensure_3d(spec, torch.as_tensor(X, dtype=ref.dtype, device=ref.device))
-    if spec.flow_is_shared:
+    if spec.flow_per_output is not None:
+        new_fp = [finalize_bn(fs, fp[d], X3[d])
+                  for d, fs in enumerate(spec.flow_per_output)]
+    elif spec.flow_is_shared:
         new_fp = finalize_bn(spec.flow, fp, X3[0])
     else:
         new_fp = finalize_bn(spec.flow, fp, X3)
@@ -413,7 +492,8 @@ def elbo(spec: TGPSpec, params, X, Y, rng=None):
 
     X is (MB, Dx); Y is (MB, Dy), or (MB,) or (MB, 1) class labels for
     classification.  One `marginal_qf` call, so one launch of the Gram
-    kernel when the tensors lie on the card.  `rng` (a torch.Generator on
+    kernel for each rbf leaf when the tensors lie on the card (the
+    unwhitened KL reuses its K_zz).  `rng` (a torch.Generator on
     the tensors' device) is required when the flow is stochastic (dropout
     or VI hypernets, in training mode) and for the categorical likelihood.
     The categorical ELL takes two distinct draws from it, in this order:
@@ -422,14 +502,10 @@ def elbo(spec: TGPSpec, params, X, Y, rng=None):
     `fold_in(rng, 7919)`, JAX `models/tgp.py:555-563`).
     Returns (elbo, ell, kld), all 0-d tensors (maximise the elbo).
     """
-    if spec.remat:
-        raise NotImplementedError("spec.remat (recomputation of marginal_qf and "
-                                  "the warp) is not ported yet (ROADMAP Queue 1 "
-                                  "item 21)")
     MB = X.shape[0]
     X3 = _ensure_3d(spec, X)
-    mu, var = marginal_qf(spec, params, X3)
-    kl = torch.sum(kld_qu(spec, params))
+    mu, var, prior = _marginal_qf(spec, params, X3, diagonal=True)
+    kl = torch.sum(kld_qu(spec, params, prior))
     kl_flow = flows_kld(spec, params)
 
     lik = spec.likelihood

@@ -1,38 +1,46 @@
-"""Batched ARD Gram-matrix kernels: the `rbf` and `scale` subset of the JAX
-package's `ops/kernels.py`.
+"""Batched ARD Gram-matrix kernels (counterpart of the JAX package's
+`ops/kernels.py`).
 
-  * a kernel is a static `KernelSpec` tree plus a dict of parameters,
+  * a kernel is a static `KernelSpec` tree plus a dict of parameters: rbf,
+    matern12/32/52, periodic, cosine, white, and the scale, product and
+    additive combinators (spectral mixtures are additive trees of
+    product(periodic or cosine, scale(rbf)));
   * `gram(spec, params, X1, X2, same=...)` returns (Dy, N, M) Gram matrices;
     `gram_diag(spec, params, X)` returns (Dy, N) diagonals;
-  * `gram_pair(spec, params, X, Z)` returns (K(X, Z), K(Z, Z)) in one call.
+  * `gram_pair(spec, params, X, Z)` returns (K(X, Z), K(Z, Z)) in one call,
+    recursively over the tree: the two Grams of `marginal_qf`;
+  * the white kernel adds noise only to K(X, X) evaluations (`same=True`
+    and N = M), never to K_zz or K_xz.
 
 Routing departs from the JAX package on purpose: its gate `_pallas_ok`
 sends only fp32 Grams of at least 2^18 elements to Pallas, to amortise a
 launch on the TPU.  Here every `rbf` or `scale(rbf)` Gram of a CUDA tensor,
-in fp32 and fp64, goes through the CUDA kernels (`ops/rbf_gram.py`), and a
-CPU tensor takes the plain version.  Other kinds raise NotImplementedError
-until ROADMAP Queue 1 item 17 ports them.
+in fp32 and fp64, goes through the CUDA kernels (`ops/rbf_gram.py`), as a
+leaf of a product or additive tree too, and a CPU tensor takes the plain
+version.  The other kinds are plain torch ops on either device.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Tuple
 
+import numpy as np
 import torch
 
 from .. import config as cfg
-from .rbf_gram import rbf_gram, rbf_gram_pair, sq_dist as _sq_dist  # noqa: F401 (JAX name)
+from .rbf_gram import rbf_gram, rbf_gram_pair, sq_dist as _sq_dist
 from .transforms import softplus, np_inv_softplus
 
-_TODO = "is not ported yet (ROADMAP Queue 1 item 17)"
+_STATIONARY = ("rbf", "matern12", "matern32", "matern52")
 
 
 @dataclasses.dataclass(frozen=True)
 class KernelSpec:
     """Static kernel description (hashable)."""
 
-    kind: str
+    kind: str      # 'rbf'|'matern12'|'matern32'|'matern52'|'periodic'|'cosine'|'white'|'scale'|'product'|'additive'
     children: Tuple["KernelSpec", ...] = ()
     ard: bool = True
 
@@ -43,98 +51,253 @@ class KernelSpec:
             raise ValueError(f"{self.kind} kernel needs children")
 
 
+# -- spec builders ----------------------------------------------------------
+
 def rbf():
     return KernelSpec("rbf")
+
+
+def matern(nu: float):
+    return KernelSpec({0.5: "matern12", 1.5: "matern32", 2.5: "matern52"}[nu])
+
+
+def periodic():
+    return KernelSpec("periodic")
+
+
+def cosine():
+    return KernelSpec("cosine")
+
+
+def white():
+    return KernelSpec("white")
 
 
 def scale(child: KernelSpec):
     return KernelSpec("scale", (child,))
 
 
+def product(*children: KernelSpec):
+    return KernelSpec("product", tuple(children))
+
+
+def additive(*children: KernelSpec):
+    return KernelSpec("additive", tuple(children))
+
+
+def spectral_mixture(num_components: int, base: str = "periodic") -> KernelSpec:
+    """sum_k Periodic_k x ScaleRBF_k ('spectral_mixture') or
+    Cosine_k x ScaleRBF_k ('sm')."""
+    comp = periodic() if base == "periodic" else cosine()
+    return additive(*[product(comp, scale(rbf())) for _ in range(num_components)])
+
+
+def init_spectral_mixture_params(spec: KernelSpec, Dy: int, Dx: int,
+                                 periods, lengthscales, magnitudes,
+                                 dtype=None, device=None):
+    """Per-component initialisation of a `spectral_mixture` spec: component
+    k starts at period periods[k], lengthscale lengthscales[k] and output
+    scale magnitudes[k]."""
+    children = []
+    for k, child in enumerate(spec.children):
+        children.append(init_params(child, Dy, Dx, {
+            "period": float(np.asarray(periods[k]).reshape(-1)[0]),
+            "length_scale": float(np.asarray(lengthscales[k]).reshape(-1)[0]),
+            "kernel_scale": float(np.asarray(magnitudes[k]).reshape(-1)[0]),
+        }, dtype, device))
+    return {"children": children}
+
+
 def from_name(name: str) -> KernelSpec:
-    """Name-compatible factory (the ported subset of the JAX table)."""
-    table = {"rbf": rbf(), "scale_rbf": scale(rbf())}
-    if name in ("matern32", "scale_matern32", "matern52", "scale_matern52",
-                "whitenoise", "periodic", "cosine"):
-        raise NotImplementedError(f"kernel {name!r} {_TODO}")
+    """Name-compatible factory (the JAX package's table)."""
+    table = {
+        "rbf": rbf(),
+        "scale_rbf": scale(rbf()),
+        "matern32": matern(1.5),
+        "scale_matern32": scale(matern(1.5)),
+        "matern52": matern(2.5),
+        "scale_matern52": scale(matern(2.5)),
+        "whitenoise": white(),
+        "periodic": periodic(),
+        "cosine": cosine(),
+    }
     if name not in table:
         raise NotImplementedError(f"unknown kernel name {name!r}")
     return table[name]
 
 
+# -- parameter initialisation ----------------------------------------------
+
 def init_params(spec: KernelSpec, Dy: int, Dx: int, init: dict | None = None,
                 dtype=None, device=None):
     """Parameter dict for `spec`, batched over Dy outputs.
 
-    `init` accepts 'length_scale' and 'kernel_scale' (inv-softplus loaded).
+    `init` accepts 'length_scale', 'kernel_scale' and 'period'
+    (inv-softplus loaded) and 'noisy_variance' (log loaded).
     """
     init = dict(init or {})
     dtype = dtype or cfg.default_dtype()
     device = cfg.resolve_device(device)
     ls = float(init.get("length_scale", 1.0))
     ks = float(init.get("kernel_scale", 1.0))
+    nv = float(init.get("noisy_variance", 1e-9))
+    period = float(init.get("period", 1.0))
     ard_dims = Dx if spec.ard else 1
 
+    def full(shape, v):
+        return torch.full(shape, float(v), dtype=dtype, device=device)
+
     def build(s: KernelSpec):
-        if s.kind == "rbf":
-            return {"raw_lengthscale": torch.full(
-                (Dy, ard_dims), float(np_inv_softplus(ls)), dtype=dtype,
-                device=device)}
+        if s.kind in _STATIONARY:
+            return {"raw_lengthscale": full((Dy, ard_dims), np_inv_softplus(ls))}
+        if s.kind == "periodic":
+            return {"raw_lengthscale": full((Dy, ard_dims), np_inv_softplus(ls)),
+                    "raw_period": full((Dy, ard_dims), np_inv_softplus(period))}
+        if s.kind == "cosine":
+            return {"raw_period": full((Dy, ard_dims), np_inv_softplus(period))}
+        if s.kind == "white":
+            return {"log_variance": full((Dy, 1), np.log(nv))}
         if s.kind == "scale":
-            return {"raw_outputscale": torch.full(
-                        (Dy,), float(np_inv_softplus(ks)), dtype=dtype,
-                        device=device),
+            return {"raw_outputscale": full((Dy,), np_inv_softplus(ks)),
                     "child": build(s.children[0])}
-        raise NotImplementedError(f"kernel kind {s.kind!r} {_TODO}")
+        if s.kind in ("product", "additive"):
+            return {"children": [build(c) for c in s.children]}
+        raise NotImplementedError(s.kind)
 
     return build(spec)
 
 
-def _rbf_parts(spec: KernelSpec, params, like):
+# -- evaluation --------------------------------------------------------------
+
+def _rbf_leaf(spec: KernelSpec, params, like):
     """(lengthscale (Dy, 1, Dx), output scale (Dy,)) of an rbf or scale(rbf)
-    spec; the output scale of a bare rbf is 1."""
+    spec, the leaves that take the CUDA kernel; None for any other spec.
+    The output scale of a bare rbf is 1."""
     if spec.kind == "rbf":
         ks = torch.ones((like.shape[0],), dtype=like.dtype, device=like.device)
         raw_ls = params["raw_lengthscale"]
-    elif spec.kind == "scale":
-        child = spec.children[0]
-        if child.kind != "rbf":
-            raise NotImplementedError(f"scale({child.kind}) {_TODO}")
+    elif spec.kind == "scale" and spec.children[0].kind == "rbf":
         ks = softplus(params["raw_outputscale"])
         raw_ls = params["child"]["raw_lengthscale"]
     else:
-        raise NotImplementedError(f"kernel kind {spec.kind!r} {_TODO}")
+        return None
     return softplus(raw_ls)[:, None, :], ks.contiguous()
+
+
+def _scaled(X, raw_ls):
+    """X / lengthscale, broadcasting ARD lengthscales (Dy, Dx) over
+    (Dy, N, Dx)."""
+    return X / softplus(raw_ls)[:, None, :]
+
+
+def _stationary_from_d2(kind: str, d2):
+    if kind == "rbf":
+        return torch.exp(-0.5 * d2)
+    r = torch.sqrt(d2 + 1e-20)
+    if kind == "matern12":
+        return torch.exp(-r)
+    if kind == "matern32":
+        a = math.sqrt(3.0) * r
+        return (1.0 + a) * torch.exp(-a)
+    if kind == "matern52":
+        a = math.sqrt(5.0) * r
+        return (1.0 + a + (5.0 / 3.0) * d2) * torch.exp(-a)
+    raise NotImplementedError(kind)
+
+
+def _combine(kind, parts):
+    out = parts[0]
+    for g in parts[1:]:
+        out = out * g if kind == "product" else out + g
+    return out
 
 
 def gram(spec: KernelSpec, params, X1, X2, same: bool = False):
     """Full Gram matrix K(X1, X2): (Dy, N, M).
 
-    `same` marks K_xx evaluations (it only matters for white-noise kernels,
-    which are not ported yet).
+    `same=True` marks K(X, X) evaluations: a white kernel adds its noise to
+    them (when N = M) and to nothing else.
     """
-    ls, ks = _rbf_parts(spec, params, X1)
-    return rbf_gram((X1 / ls).contiguous(), (X2 / ls).contiguous(), ks)
+    leaf = _rbf_leaf(spec, params, X1)
+    if leaf is not None:
+        ls, ks = leaf
+        return rbf_gram((X1 / ls).contiguous(), (X2 / ls).contiguous(), ks)
+    if spec.kind in _STATIONARY:
+        d2 = _sq_dist(_scaled(X1, params["raw_lengthscale"]),
+                      _scaled(X2, params["raw_lengthscale"]))
+        return _stationary_from_d2(spec.kind, d2)
+    if spec.kind == "periodic":
+        ls = softplus(params["raw_lengthscale"])
+        p = softplus(params["raw_period"])
+        diff = X1[:, :, None, :] - X2[:, None, :, :]
+        arg = math.pi * diff / p[:, None, None, :]
+        return torch.exp(-2.0 * torch.sum(torch.square(torch.sin(arg))
+                                          / torch.square(ls)[:, None, None, :],
+                                          dim=-1))
+    if spec.kind == "cosine":
+        p = softplus(params["raw_period"])
+        diff = X1[:, :, None, :] - X2[:, None, :, :]
+        r = torch.sqrt(torch.sum(torch.square(diff / p[:, None, None, :]),
+                                 dim=-1) + 1e-20)
+        return torch.cos(2.0 * math.pi * r)
+    if spec.kind == "white":
+        Dy, N, M = X1.shape[0], X1.shape[-2], X2.shape[-2]
+        if not same or N != M:
+            return torch.zeros((Dy, N, M), dtype=X1.dtype, device=X1.device)
+        var = torch.exp(params["log_variance"])                 # (Dy, 1)
+        return var[..., None] * torch.eye(N, dtype=X1.dtype,
+                                          device=X1.device)[None]
+    if spec.kind == "scale":
+        ks = softplus(params["raw_outputscale"])
+        return ks[:, None, None] * gram(spec.children[0], params["child"],
+                                        X1, X2, same)
+    if spec.kind in ("product", "additive"):
+        return _combine(spec.kind, [gram(c, p, X1, X2, same) for c, p in
+                                    zip(spec.children, params["children"])])
+    raise NotImplementedError(spec.kind)
 
 
 def gram_pair(spec: KernelSpec, params, X, Z):
     """(K(X, Z), K(Z, Z)): (Dy, N, M) and (Dy, M, M), the two Grams of
     `marginal_qf` (port only; the JAX package calls `gram` twice).
 
-    The lengthscale and output scale are computed once and Z is scaled once;
-    a CUDA tensor takes one kernel launch for both Grams, a CPU tensor two
-    `rbf_gram_reference` calls.
+    Recursive over the tree, combined as `gram` combines: each rbf or
+    scale(rbf) leaf takes one `rbf_gram_pair` (on a CUDA tensor, one launch
+    of the kernel for both Grams; on a CPU tensor, two plain Grams), with
+    its lengthscale and output scale computed and Z scaled once; any other
+    leaf takes two `gram` calls.  A K-component spectral mixture thus takes
+    K launches.
     """
-    ls, ks = _rbf_parts(spec, params, X)
-    return rbf_gram_pair((X / ls).contiguous(), (Z / ls).contiguous(), ks)
+    leaf = _rbf_leaf(spec, params, X)
+    if leaf is not None:
+        ls, ks = leaf
+        return rbf_gram_pair((X / ls).contiguous(), (Z / ls).contiguous(), ks)
+    if spec.kind == "scale":
+        ks = softplus(params["raw_outputscale"])[:, None, None]
+        Kxz, Kzz = gram_pair(spec.children[0], params["child"], X, Z)
+        return ks * Kxz, ks * Kzz
+    if spec.kind in ("product", "additive"):
+        pairs = [gram_pair(c, p, X, Z)
+                 for c, p in zip(spec.children, params["children"])]
+        return (_combine(spec.kind, [k for k, _ in pairs]),
+                _combine(spec.kind, [k for _, k in pairs]))
+    return gram(spec, params, X, Z), gram(spec, params, Z, Z)
 
 
 def gram_diag(spec: KernelSpec, params, X, same: bool = True):
     """diag K(X, X): (Dy, N)."""
     Dy, N = X.shape[0], X.shape[1]
-    if spec.kind == "rbf":
+    if spec.kind in _STATIONARY + ("periodic", "cosine"):
         return torch.ones((Dy, N), dtype=X.dtype, device=X.device)
+    if spec.kind == "white":
+        if not same:
+            return torch.zeros((Dy, N), dtype=X.dtype, device=X.device)
+        var = torch.exp(params["log_variance"])
+        return torch.broadcast_to(var, (Dy, N)).to(X.dtype)
     if spec.kind == "scale":
         ks = softplus(params["raw_outputscale"])
         return ks[:, None] * gram_diag(spec.children[0], params["child"], X, same)
-    raise NotImplementedError(f"kernel kind {spec.kind!r} {_TODO}")
+    if spec.kind in ("product", "additive"):
+        return _combine(spec.kind, [gram_diag(c, p, X, same) for c, p in
+                                    zip(spec.children, params["children"])])
+    raise NotImplementedError(spec.kind)

@@ -2,11 +2,12 @@
 
 Cholesky factorisations and triangular solves are `torch.linalg` (cuSOLVER
 and cuBLAS on the card, LAPACK on the CPU), as the JAX package left them to
-XLA.  All functions take arbitrary leading batch dimensions.  `kl_gaussian`
-(the whiten=False KL) waits for ROADMAP Queue 1 item 18.
+XLA.  All functions take arbitrary leading batch dimensions.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -70,6 +71,80 @@ def safe_cholesky(A, jitter: float | None = None):
     return L, Aj
 
 
+def _round_tf32(x):
+    """fp32 x rounded to TF32's 10-bit mantissa (to nearest, ties away from
+    zero, as the tensor cores' conversion rounds)."""
+    return ((x.view(torch.int32) + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _split_tf32(x):
+    """x = hi + lo + (x's last 2^-22 or so): hi and lo are TF32 values."""
+    hi = _round_tf32(x.contiguous())
+    return hi, _round_tf32(x - hi)
+
+
+def _matmul_in(a, b, mode: str):
+    """a @ b at a reduced precision, on the TF32 tensor cores, fp32
+    accumulation.  'high': three TF32 passes over the operands split into
+    TF32 high and low parts (a_hi b_lo + a_lo b_hi + a_hi b_hi), the
+    counterpart of the TPU's three bf16 passes; 'default': one pass over
+    operands rounded to bf16, the TPU's one bf16 pass.  The operands are
+    rounded here, so a matrix-vector product, which cuBLAS runs without
+    tensor cores, gets the same precision as a GEMM."""
+    with cfg.tf32_matmuls():
+        if mode == "high":
+            (a_hi, a_lo), (b_hi, b_lo) = _split_tf32(a), _split_tf32(b)
+            return (torch.matmul(a_hi, b_lo) + torch.matmul(a_lo, b_hi)) \
+                + torch.matmul(a_hi, b_hi)
+        return torch.matmul(a.to(torch.bfloat16).to(a.dtype),
+                            b.to(torch.bfloat16).to(b.dtype))
+
+
+class _MatmulAt(torch.autograd.Function):
+    """a @ b (equal batch shapes) at a reduced precision, forward and
+    backward: a precision flag set around the forward alone would be gone
+    by the time autograd runs the backward."""
+
+    @staticmethod
+    def forward(ctx, a, b, mode):
+        ctx.save_for_backward(a, b)
+        ctx.mode = mode
+        return _matmul_in(a, b, mode)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        ga = gb = None
+        if ctx.needs_input_grad[0]:
+            ga = _matmul_in(g, b.transpose(-1, -2), ctx.mode)
+        if ctx.needs_input_grad[1]:
+            gb = _matmul_in(a.transpose(-1, -2), g, ctx.mode)
+        return ga, gb, None
+
+
+#: the batched contractions of `marginal_qf` as matmuls: equation ->
+#: (transpose a, squeeze the last axis of the result)
+_MATMUL_FORMS = {"dnm,dmo->dn": (False, True), "dmk,dmn->dkn": (True, False),
+                 "dkm,dmn->dkn": (False, False), "dmk,dmo->dko": (True, False),
+                 "dnm,dmk->dnk": (False, False), "dmn,dmk->dnk": (True, False)}
+
+
+def einsum_at(eq: str, a, b, mode: str = "highest"):
+    """torch.einsum(eq, a, b) at solve precision `mode` ('highest' | 'high'
+    | 'default', `config`'s meaning), in the forward and the backward.
+    Only fp32 CUDA tensors change: in fp64 and on the CPU every mode is
+    `torch.einsum` itself, and so is 'highest' everywhere."""
+    if mode not in ("highest", "high", "default"):
+        raise ValueError(f"unknown solve precision {mode!r}")
+    if mode == "highest" or a.dtype != torch.float32 or a.device.type != "cuda":
+        return torch.einsum(eq, a, b)
+    transpose_a, squeeze = _MATMUL_FORMS[eq]
+    a = a.expand(b.shape[:-2] + a.shape[-2:])
+    b = b.expand(a.shape[:-2] + b.shape[-2:])
+    out = _MatmulAt.apply(a.transpose(-1, -2) if transpose_a else a, b, mode)
+    return out[..., 0] if squeeze else out
+
+
 def tril_solve(L, B):
     """Solve L X = B with L lower-triangular (batched)."""
     return torch.linalg.solve_triangular(L, B, upper=False)
@@ -83,6 +158,23 @@ def triu_solve(U, B):
 def cholesky_solve(L, B):
     """Solve A X = B given A = L L^T (batched)."""
     return torch.cholesky_solve(B, L, upper=False)
+
+
+def batched_log_gaussian(obs, mean, cov, cov_is_inverse: bool = False):
+    """log N(obs | mean, diag(cov)) reduced over the trailing dim.
+
+    obs, mean and cov are (*, N); with `cov_is_inverse`, `cov` holds the
+    precision.  Returns (*,) log-densities.
+    """
+    N = mean.shape[-1]
+    cte = N * math.log(2.0 * math.pi)
+    log_det = torch.sum(torch.log(cov), dim=-1)
+    inv_c = cov if cov_is_inverse else 1.0 / cov
+    if cov_is_inverse:
+        log_det = -log_det
+    diff = obs - mean
+    maha = torch.sum(diff * inv_c * diff, dim=-1)
+    return -0.5 * (cte + log_det + maha)
 
 
 def tril_mask(L):
@@ -107,3 +199,26 @@ def kl_whitened(m, L_raw):
     dot_mean = torch.sum(torch.square(m), dim=-1)
     trace = torch.sum(torch.square(L), dim=(-2, -1))      # tr(L L^T)
     return 0.5 * (-log_det + dot_mean + trace - float(M))
+
+
+def kl_gaussian(m_q, L_q_raw, m_p, K_p, jitter: float | None = None, L_p=None):
+    """KL( N(m_q, S_q) || N(m_p, K_p) ) with S_q = tril(L_q) tril(L_q)^T, the
+    unwhitened KL, through a jittered Cholesky L_p of K_p:
+        0.5 * ( log|K_p| - log|S_q| - M + tr(K_p^{-1} S_q)
+                + (m_p - m_q)^T K_p^{-1} (m_p - m_q) ).
+
+    m_q, m_p are (..., M), L_q_raw and K_p (..., M, M); returns (...,).
+    `L_p`, when given, is `safe_cholesky(K_p, jitter)[0]` already computed
+    (the model passes `marginal_qf`'s factor of the same K_zz).
+    """
+    Lq = tril_mask(L_q_raw)
+    M = m_q.shape[-1]
+    Lp = safe_cholesky(K_p, jitter)[0] if L_p is None else L_p
+    log_det_p = 2.0 * torch.sum(torch.log(torch.diagonal(Lp, dim1=-2, dim2=-1)),
+                                dim=-1)
+    log_det_q = torch.sum(torch.log(torch.square(
+        torch.diagonal(Lq, dim1=-2, dim2=-1))), dim=-1)
+    trace = torch.sum(torch.square(tril_solve(Lp, Lq)), dim=(-2, -1))
+    sol = tril_solve(Lp, (m_p - m_q)[..., None])
+    maha = torch.sum(torch.square(sol), dim=(-2, -1))
+    return 0.5 * (log_det_p - log_det_q - float(M) + trace + maha)

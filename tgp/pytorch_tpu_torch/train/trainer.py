@@ -23,15 +23,22 @@ package's `train/trainer.py`.
   * Classification (Bernoulli and categorical likelihoods): labels are the
     Y column; evaluation reports logL, accuracy and the calibration
     measures (ECE, MCE, Brier, NLL) instead of rmse and coverage.
+  * The plateau guard (`plateau_guard`): at chunk boundaries (full batch)
+    or every 50 epochs (minibatch), on the curve already copied there, it
+    compares the mean ELBO of the last two windows; its `recover` action
+    swaps `self.spec` to trsm/'highest' solves in place, with the
+    optimizer's moments and the generator carried across.  A step reads
+    `self.spec` afresh, so a spec swapped between `train` calls (the CLI's
+    solve warm-up) keeps the optimizer state too.
 
 Not ported yet: natural gradients and L-BFGS (ROADMAP Queue 1 item 19),
-meshes, checkpoints and evaluation on another device (item 20), the
-plateau guard (it acts only on the solve levers of item 18), `track_fn` and
-the host minibatch loop for datasets over 512 MB (item 21).
+meshes, checkpoints and evaluation on another device (item 20), `track_fn`
+and the host minibatch loop for datasets over 512 MB (item 21).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import time
 
 import numpy as np
@@ -126,8 +133,17 @@ class Trainer:
         #: raise FloatingPointError, naming the non-finite parameters, when
         #: the ELBO goes non-finite (checked per chunk, or every 50 epochs)
         self.nan_guard = True
-        #: the early-stall detector, which waits for item 18
+        #: the early-stall detector, off by default; a dict turns it on:
+        #:   {"window": 2000,            # steps per compared window
+        #:    "min_rel_improve": 1e-4,   # least relative mean-ELBO gain
+        #:    "max_fraction": 0.5,       # checked only this far into train()
+        #:    "action": "warn"}          # or "raise" / "recover"
+        #: Each firing appends to `plateau_events`.  "recover", on a spec
+        #: with fast_solves or a reduced solve_precision, swaps the spec to
+        #: trsm/'highest' and goes on; on an all-'highest' spec it warns.
         self.plateau_guard = None
+        self.plateau_events = []
+        self._recover_pending = False
         self._opt_state_carry = None
         self._opt_state_kind = None
 
@@ -147,6 +163,61 @@ class Trainer:
             f"non-finite ELBO at {where}; non-finite parameters: {bad or 'none'}"
             f" — consider fp64 precision, a larger Cholesky jitter, or a "
             f"smaller learning rate")
+
+    def _check_plateau(self, ep_done: int, total_epochs: int):
+        """The plateau guard's check on the recorded ELBO curve (the JAX
+        Trainer's rule and messages)."""
+        g = self.plateau_guard
+        if not g:
+            return
+        w = int(g.get("window", 2000))
+        if len(self.loss_curve) < 2 * w:
+            return
+        rec_at = g.get("_recovered_at")
+        if rec_at is not None and len(self.loss_curve) < rec_at + 2 * w:
+            return          # two fresh windows after a swap before judging
+        if ep_done > g.get("max_fraction", 0.5) * total_epochs:
+            return
+        recent = float(np.mean(np.asarray(self.loss_curve[-w:], np.float64)))
+        prev = float(np.mean(np.asarray(self.loss_curve[-2 * w:-w],
+                                        np.float64)))
+        rel = (recent - prev) / (abs(prev) + 1e-12)
+        if rel >= g.get("min_rel_improve", 1e-4):
+            return
+        event = {"step": len(self.loss_curve), "epoch": ep_done,
+                 "rel_improve": rel, "window": w,
+                 "elbo_recent": recent, "elbo_prev": prev}
+        self.plateau_events.append(event)
+        msg = (f"ELBO plateau at epoch {ep_done}/{total_epochs}: mean over "
+               f"the last {w} recorded steps improved by {rel:.2e} rel "
+               f"(< {g.get('min_rel_improve', 1e-4):.0e}) while only "
+               f"{100 * ep_done / total_epochs:.0f}% through training — "
+               f"suspicious early stall; try another training rng, "
+               f"solve_precision='highest', or --solve_warmup_epochs")
+        action = g.get("action", "warn")
+        if action == "recover" and (self.spec.fast_solves or
+                                    self.spec.solve_precision != "highest"):
+            event["action"] = "recover"
+            g["_recovered_at"] = len(self.loss_curve)
+            self._recover_pending = True
+            print(f"RECOVERING: {msg}", flush=True)
+            return
+        if action == "raise":
+            raise RuntimeError(msg)
+        print(f"WARNING: {msg}", flush=True)
+
+    def _maybe_recover_spec(self) -> bool:
+        """Consume a pending recovery: swap the spec to trsm/'highest' in
+        place.  The optimizer state and the generator are untouched, and
+        the next step reads the new spec."""
+        if not self._recover_pending:
+            return False
+        self._recover_pending = False
+        self.spec = dataclasses.replace(self.spec, fast_solves=False,
+                                        solve_precision="highest")
+        print("plateau recovery: solves switched to trsm/'highest' with "
+              "optimizer moments carried", flush=True)
+        return True
 
     def _step(self, step, X, Y):
         """One optimisation step; returns (elbo, ell, kld) on the device."""
@@ -186,10 +257,6 @@ class Trainer:
         if opt == "lbfgs":
             raise NotImplementedError("lbfgs is not ported yet (ROADMAP Queue 1 "
                                       "item 19)")
-        if self.plateau_guard:
-            raise NotImplementedError(
-                "plateau_guard acts only on fast_solves and solve_precision, "
-                "which are not ported yet (ROADMAP Queue 1 item 18)")
         if optimisation_schedule is None:
             optimisation_schedule = ([1.0], [None])
         percentages, specifications = optimisation_schedule
@@ -233,6 +300,8 @@ class Trainer:
             done += n
             ep_done += n
             self._check_finite(f"epoch {ep_done}")
+            self._check_plateau(ep_done, epochs)
+            self._maybe_recover_spec()
             if verbose_each:
                 base = len(self.loss_curve) - ep_done
                 m = (prev_ep // verbose_each + 1) * verbose_each
@@ -279,6 +348,8 @@ class Trainer:
                 pending = []
             if check:
                 self._check_finite(f"epoch {ep_done}")
+                self._check_plateau(ep_done, epochs)
+                self._maybe_recover_spec()
             if show:
                 print(f"| epoch {ep_done}/{epochs}  "
                       f"ELBO {float(self.loss_curve[-1]):.4f} "
