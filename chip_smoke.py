@@ -18,7 +18,9 @@ Phases, each of which fails the run (non-zero exit) on any error:
      protocol's (1080+50 and 120+50, Dy=1 and Dy=3, fp32 and fp64): the
      forward, the backward kernel (twice, bitwise equal) and
      the autograd gradients, with device times from CUDA-graph replays
-     beside the bound; and one Gram of 2,200,000 rows;
+     beside the bound; the deep TGP's (Dy=13 Dx=13 455+100 in fp64 and
+     fp32, 5100+100 and 45500+100 in fp64; Dy=8 Dx=8 7373+100 and
+     737300+100 in fp32); and one Gram of 2,200,000 rows;
   3. serving: `serve.Predictor` on the flagship TGP (UCI power split 1, SAL 2
      flow, scale-RBF ARD kernel, whitened q(U) with M=100, 100 Gauss-Hermite
      nodes, fp32, buckets 256/4096) answering moments, band, sample,
@@ -82,6 +84,21 @@ Phases, each of which fails the run (non-zero exit) on any error:
      equal, the moments and the ELBO's gradient moved, 1 and 1 a step);
      the step times of trsm/highest, fast/highest, fast/high and
      fast/default at both M.
+ 11. deep and natgrad: the deep TGP (`--model DGP --layers 2`) on boston
+     (M=100, the inner layer 13 outputs wide) for 200 epochs on the card
+     against the CPU in fp64 and fp32 on the same draws (`CpuDraws`; fp64
+     also after 30 epochs, and beside the CPU's run from a moved start), its
+     S_test=100 evaluation, step and serving at buckets 256/4096 (2 launches
+     a request, the propagation of 819,200 rows in a band request); DGP-2
+     --dgp_flow on kin8nm (fp32): its step and one evaluation batch of
+     737,300 rows a layer; natural gradients: the conjugate step on power
+     (fp64: one gamma=1 step lands on the optimum), the flagship with
+     natgrad_gamma 1.0 for 200 epochs on the card against the CPU in fp64
+     and fp32 (held after 30 epochs, logged beside moved starts), its step,
+     and a warmup ramp of 10 split over two train() calls bitwise equal to
+     one call.  2 forward launches and 2 backward calls a DGP-2 step, 2
+     forward launches an evaluation batch and a request; 1 and 1 a natgrad
+     step.
 The line before the last holds the kernels' JSON record, the last line
 `{"ok": true, "device": {...}}`.  Details go to chiprun_out/chip_smoke.json.
 """
@@ -266,6 +283,17 @@ KERNEL_SHAPES = [  # (label, Dy, N, M, Dx, dtype, pair)
     ("pair 51+50 Dy=2 Dx=13 fp64", 2, 51, 50, 13, F64, True),
     ("K_xx 51x51 Dx=13 fp64", 1, 51, 51, 13, F64, False),
     ("pair 8611+256 fp32", 1, 8611, 256, 4, F32, True),
+    # the deep TGP (phase 11): DGP-2 on boston, its inner layer 13 outputs
+    # wide (Dx=13, M=100) at the 455 training rows, at S_test=100 paths of
+    # the 51 test rows and of the 455 training rows (fp64, the CLI's), and
+    # in fp32; --dgp_flow on kin8nm (Dx=8, fp32): the 7373 training rows,
+    # and x 100 paths in an evaluation batch
+    ("pair 455+100 Dy=13 Dx=13 fp64", 13, 455, 100, 13, F64, True),
+    ("pair 455+100 Dy=13 Dx=13 fp32", 13, 455, 100, 13, F32, True),
+    ("pair 5100+100 Dy=13 Dx=13 fp64", 13, 5100, 100, 13, F64, True),
+    ("pair 45500+100 Dy=13 Dx=13 fp64", 13, 45500, 100, 13, F64, True),
+    ("pair 7373+100 Dy=8 Dx=8 fp32", 8, 7373, 100, 8, F32, True),
+    ("pair 737300+100 Dy=8 Dx=8 fp32", 8, 737300, 100, 8, F32, True),
 ]
 # more rows than the earlier kernel's grid took (65535 tiles of 32)
 BIG_GRAM = ("K_xz 2200000x8 Dx=1 fp32", 1, 2_200_000, 8, 1, F32)
@@ -322,9 +350,11 @@ def kernel_phase(dev):
         for gk, gr, nm in zip(*grads, ("dX1", "dX2", "dks")):
             assert_close_scaled(f"{label} autograd {nm}", gk, gr, gtol)
 
-        ms = graph_ms(lambda: R._launch_pair(X1, X2, ks, pair))
-        plain_ms = graph_ms(lambda: plain(X1, X2, ks))
-        bwd_ms, bwd_plain_ms = graph_ms(bwd), graph_ms(plain_bwd)
+        calls = 10 if Dy * N * M > 10 ** 8 else 100     # graph memory
+        ms = graph_ms(lambda: R._launch_pair(X1, X2, ks, pair), calls)
+        plain_ms = graph_ms(lambda: plain(X1, X2, ks), calls)
+        bwd_ms = graph_ms(bwd, calls)
+        bwd_plain_ms = graph_ms(plain_bwd, calls)
         bound_ms, bound_by, nbytes, flops = gram_bound(Dy, N, M, Dx, dtype, pair)
         b_ms, b_by, b_bytes, b_flops = bwd_bound(Dy, N, M, Dx, dtype, pair)
         row = dict(shape=label, pair=pair,
@@ -891,14 +921,15 @@ def step_timing(tr, precision, tag, **train_kw):
                 profile_per_step=per_step, profile_top_ms=prof["top_ms"])
 
 
-def held_gaps(vals, pairs, group, limits, tag, checks):
+def held_gaps(vals, pairs, group, limits, tag, checks, logged=()):
     """The largest gap of each group of values relative to the group's
     largest entry in the CPU's fp64 run ('cpu64'), checked against
     `limits[pair][group]` (an anchor fit drives its nets' output weights
     towards 0, so a leaf's own largest entry would be a rounding floor).
-    A pair without limits, and a group whose limit is None, is logged and
+    A pair named in `logged`, and a group whose limit is None, is logged and
     not held; so is q(U) where the pair's limits leave it out (fp32 holds it
-    through the KL curve).  Any other group without a limit fails."""
+    through the KL curve).  Any other pair or group without a limit fails,
+    so that an empty or missing table cannot switch a check off."""
     ref = vals["cpu64"]
     scale = {}
     for n in ref:
@@ -911,9 +942,12 @@ def held_gaps(vals, pairs, group, limits, tag, checks):
                       / (scale[group(n)] or 1.0))
             grouped[group(n)] = max(grouped.get(group(n), 0.0), g)
         lim = limits.get(pair)
+        if lim is None and pair not in logged:
+            checks.append((False, f"{tag} {pair}: no limits given"))
         for n, g in grouped.items():
             log(f"{tag} {pair} {n:32s} {g:.3e}")
-            if (lim is None or (n in lim and lim[n] is None)
+            if (pair in logged or lim is None
+                    or (n in lim and lim[n] is None)
                     or (n not in lim and n.startswith(("q_mu", "q_L")))):
                 continue                                # logged, not held
             checks.append((n in lim and g <= lim[n],
@@ -1149,7 +1183,8 @@ def experiment_phase(dev):
              "cpu32_vs_cpu64": ("cpu32", "cpu64")}
     gaps = held_gaps(vals, pairs, exp_group, {"gpu64_vs_cpu64": EXP_F64_LIMITS,
                                               "gpu32_vs_cpu32": EXP_F32_LIMITS},
-                     "experiment TGP", checks)
+                     "experiment TGP", checks,
+                     logged=("gpu32_vs_cpu64", "cpu32_vs_cpu64"))
     # Against fp64, by groups: after 2200 fp32 Adam steps each run's
     # distance to fp64 is a walk of its own, and one scalar of the CPU's
     # can land near fp64 by chance (train rmse 1.2e-5 where test rmse sat
@@ -1754,9 +1789,13 @@ def wgp_phase(dev):
             vals["cpu64_ulp"] = summ[arch, "fp64", "cpu_ulp"]["values"]
             course[arch] = curve_course(vals, ("gpu64", "cpu64_ulp"),
                                         f"WGP {arch}")
+        # SAL in fp64 is chaotic: its 200-epoch gaps are logged
+        logged = ("cpu64_ulp_vs_cpu64",) + (
+            ("gpu64_vs_cpu64",) if arch == "SAL" else ())
         gaps[arch] = held_gaps(vals, {k: v for k, v in pairs.items()
                                       if v[0] in vals},
-                               wgp_group, WGP_LIMITS[arch], f"WGP {arch}", checks)
+                               wgp_group, WGP_LIMITS[arch], f"WGP {arch}", checks,
+                               logged=logged)
     early = {f"{p}64": summ["SAL early", "fp64", p]["values"] for p in ("gpu", "cpu")}
     gaps["SAL early"] = held_gaps(early, {"gpu64_vs_cpu64": ("gpu64", "cpu64")},
                                   wgp_group, WGP_EARLY_LIMITS,
@@ -2089,10 +2128,13 @@ def classification_phase(dev):
         if (kind, model) == early[:2]:
             vals["cpu64_ulp"] = summ[early + ("cpu_ulp",)]["values"]
             course[tag] = curve_course(vals, ("gpu64", "cpu64_ulp"), tag)
+        # binary TGP in fp64 is chaotic: its 200-epoch gaps are logged
+        logged = ("cpu64_ulp_vs_cpu64",) + (
+            ("gpu64_vs_cpu64",) if (kind, model) == early[:2] else ())
         gaps[kind, model] = held_gaps(vals, {k: v for k, v in pairs.items()
                                              if v[0] in vals},
                                       exp_group, CLS_LIMITS[kind, model], tag,
-                                      checks)
+                                      checks, logged=logged)
         for b in ("64", "32"):
             for name, acc in s["cpu" + b]["acc"].items():
                 rows = s["cpu" + b]["n_rows"][name.split("/")[1]]
@@ -2537,13 +2579,590 @@ def surface_phase(dev):
         tag = f"model surface {label}"
         course[label] = curve_course(vals, ("gpu64", "cpu64_ulp"), tag)
         lim = SURF_LIMITS[label]
-        gaps[label] = held_gaps(vals, pairs, exp_group,
-                                {} if lim is None else {"gpu64_vs_cpu64": lim},
-                                tag, checks)
+        gaps[label] = held_gaps(
+            vals, pairs, exp_group,
+            {} if lim is None else {"gpu64_vs_cpu64": lim}, tag, checks,
+            logged=("cpu64_ulp_vs_cpu64",) + (
+                ("gpu64_vs_cpu64",) if lim is None else ()))
     result.update(gaps=gaps, curve_course=course, metrics={
         f"{k} {p}": summ[k, p]["metrics"] for k in runs_of
         for p in ("gpu64", "cpu64", "cpu64_ulp")}, seconds={
         summ[key]["tag"]: summ[key]["seconds"] for key in summ}, **counts)
+    for cond, msg in checks:
+        check(cond, msg)
+    return result
+
+
+# ---------------------------------------------------------------------------
+# phase 11: the deep TGP and natural gradients
+# ---------------------------------------------------------------------------
+
+DGP_EPOCHS = 200          # training epochs of the boston DGP-2 runs
+DGP_M = 100               # PARITY.md's DGP rows: M=100
+DGP_EARLY = 30            # the fp64 run's epochs held leaf by leaf
+DGP_SEED = 17             # the replayed draws' CPU generator
+DGP_FLOW_EPOCHS = 5       # kin8nm's DGP-2 --dgp_flow (fp32, the card alone)
+NG_EPOCHS = 200           # the flagship's natgrad runs (natgrad_gamma 1.0)
+NG_EARLY = 30             # the natgrad runs' epochs held leaf by leaf
+NG_WARMUP = 10            # the ramp split over two train() calls
+ULP_REL32 = 1e-7          # a moved start in fp32 (about one rounding unit)
+# DGP-2 on boston (fp64 and fp32) and the flagship under natural gradients,
+# the card against the CPU on the same draws, relative to the largest entry
+# of the group in the CPU's fp64 run ('layers/L/flow': a layer's flow
+# leaves; 'curve0': the first ELBO): 10x the gaps measured on an NVIDIA
+# H100 80GB HBM3 at 700 W, floored at 10 fp64 or fp32 rounding units.  The
+# DGP is not chaotic: the CPU's run from a start scaled by 1 + 1e-15 stays
+# within 1.4e-15 of the unscaled one on the curve and 7.3e-12 on q_L after
+# 200 epochs, as the card does (8.6e-15, 2.3e-11), so its 200 epochs are
+# held, and its first DGP_EARLY too.
+DGP_LIMITS = {
+    "gpu64_vs_cpu64": {
+        "curve": 8.6e-14, "kld": 4.3e-15, "layers/0/Z": 5.0e-12,
+        "layers/0/kernel/child/raw_lengthscale": 4.0e-13,
+        "layers/0/kernel/raw_outputscale": 3.5e-13,
+        "layers/0/likelihood/log_var_noise": 2.2e-15,
+        "layers/0/mean/W": 2.2e-15, "layers/0/q_L": 2.3e-10,
+        "layers/0/q_mu": 1.6e-12, "layers/1/Z": 2.9e-12,
+        "layers/1/kernel/child/raw_lengthscale": 4.9e-14,
+        "layers/1/kernel/raw_outputscale": 1.0e-14,
+        "layers/1/likelihood/log_var_noise": 2.2e-15,
+        "layers/1/q_L": 1.0e-12, "layers/1/q_mu": 7.0e-13,
+        "train/logL": 3.8e-15, "train/rmse": 8.6e-15, "test/logL": 5.6e-15,
+        "test/rmse": 2.2e-15, "curve0": 5.1e-15},
+    "gpu32_vs_cpu32": {
+        "curve": 3.4e-06, "kld": 1.3e-06, "layers/0/Z": 1.7e-03,
+        "layers/0/kernel/child/raw_lengthscale": 4.5e-05,
+        "layers/0/kernel/raw_outputscale": 3.0e-05,
+        "layers/0/likelihood/log_var_noise": 1.2e-06,
+        "layers/0/mean/W": 1.2e-06, "layers/0/q_L": 6.9e-02,
+        "layers/0/q_mu": 1.1e-03, "layers/1/Z": 2.8e-04,
+        "layers/1/kernel/child/raw_lengthscale": 2.5e-06,
+        "layers/1/kernel/raw_outputscale": 2.2e-06,
+        "layers/1/likelihood/log_var_noise": 1.9e-06,
+        "layers/1/q_L": 4.4e-04, "layers/1/q_mu": 1.4e-04,
+        "train/logL": 5.7e-06, "train/rmse": 1.6e-05, "test/logL": 1.3e-06,
+        "test/rmse": 1.4e-05, "curve0": 3.4e-06},
+}
+DGP_EARLY_LIMITS = {
+    "gpu64_vs_cpu64": {
+        "curve": 5.7e-15, "kld": 2.2e-15, "layers/0/Z": 3.3e-12,
+        "layers/0/kernel/child/raw_lengthscale": 4.2e-14,
+        "layers/0/kernel/raw_outputscale": 2.8e-15,
+        "layers/0/likelihood/log_var_noise": 2.2e-15,
+        "layers/0/mean/W": 2.2e-15, "layers/0/q_L": 2.9e-10,
+        "layers/0/q_mu": 2.5e-11, "layers/1/Z": 2.2e-12,
+        "layers/1/kernel/child/raw_lengthscale": 4.1e-15,
+        "layers/1/kernel/raw_outputscale": 2.2e-15,
+        "layers/1/likelihood/log_var_noise": 2.2e-15,
+        "layers/1/q_L": 4.4e-13, "layers/1/q_mu": 4.1e-13,
+        "train/logL": 1.4e-14, "train/rmse": 1.6e-14, "test/logL": 2.2e-15,
+        "test/rmse": 6.2e-15, "curve0": 5.1e-15},
+}
+# Natural gradients from the flagship's init are chaotic from their first
+# step: gamma=1 lands q(U) on the conditional optimum of an ill-conditioned
+# precision, so a rounding gap grows to 1.6e-7 of the ELBO in fp64 (6.5e-3
+# in fp32) at the second epoch, on the card as on the CPU's own run from a
+# start scaled by 1 + 1e-15 (1 + 1e-7 in fp32): 1.4e-7 (2.0e-3).  So the
+# 200-epoch gaps are logged beside that witness, and fp64 is held after
+# NG_EARLY epochs.  In fp32 the first update is rounding: on the CPU it
+# lands the ELBO at -4819 where fp64 lands at -390 (a start moved by 1e-7:
+# -5679), and q(U) parts from fp64 by 0.5-0.7 of its largest entry within a
+# 10-step warmup ramp.  So fp32 is held at its first ELBO ('curve0', before
+# any update) and by the 4x rule against fp64 over NG_EARLY epochs (the
+# card's curve no further from the CPU's fp64 one than 4x the farther of
+# the CPU's fp32 runs from the start and from the moved one), its groups'
+# gaps to the CPU's fp32 run logged.
+NG_EARLY_LIMITS = {
+    "gpu64_vs_cpu64": {
+        "curve": 1.6e-06, "kld": 5.7e-07, "curve0": 4.8e-14, "Z": 3.7e-05,
+        "flow": 9.1e-06, "kernel/child/raw_lengthscale": 2.4e-06,
+        "kernel/raw_outputscale": 7.0e-08, "likelihood/log_var_noise": 1.0e-08,
+        "q_L": 7.3e-05, "q_mu": 7.7e-05},
+    "gpu32_vs_cpu32": {
+        "curve0": 4.8e-06, "curve": None, "kld": None, "Z": None,
+        "flow": None, "kernel/child/raw_lengthscale": None,
+        "kernel/raw_outputscale": None, "likelihood/log_var_noise": None,
+        "q_L": None, "q_mu": None},
+}
+# the card's fp32 DGP answers (moments, log_prob) against the CPU's on the
+# same draws, relative to the largest |value|: 10x the gaps measured
+DGP_SERVING_LIMITS = {"mean": 1.5e-5, "var": 4.3e-5, "log_prob": 9.8e-7}
+
+
+def dgp_group(name):
+    """A deep run's value groups: each layer's flow leaves together."""
+    parts = name.split("/")
+    if parts[0] == "layers" and len(parts) > 3 and parts[2] == "flow":
+        return "/".join(parts[:3])
+    return name
+
+
+def dgp_run(dataset, M, epochs, precision, platform, extra=(),
+            replay=DGP_SEED):
+    """One `--model DGP --layers 2` CLI run as the main path, its counts
+    from 0; `replay` seeds `CpuDraws` for the inner layers' and the
+    samples' normals (None: the run's own generator).  Returns the `Run`
+    and its summary (host values only; 'curve0' the first ELBO)."""
+    from tgp.pytorch_tpu_torch.flows import hypernet as H
+    from tgp.pytorch_tpu_torch.ops import rbf_gram as R
+
+    prev = H._draw
+    if replay is not None:
+        H._draw = CpuDraws(replay)
+    t0 = time.perf_counter()
+    try:
+        # --- the main path: counts from 0 --------------------------------
+        R.LAUNCHES = R.BWD_LAUNCHES = 0
+        run = cli_run("DGP", dataset, M, epochs, precision, platform,
+                      ("--layers", "2", *extra))
+        counts = (R.LAUNCHES, R.BWD_LAUNCHES)
+        # -------------------------------------------------------------------
+    finally:
+        H._draw = prev
+    tr = run.trainer
+    values = exp_values(run)
+    values["curve0"] = values["curve"][:1]
+    return run, dict(
+        tag=f"DGP-2{'+flow' if extra else ''} {dataset} M={M} {precision} on "
+            f"the {'card' if platform == 'gpu' else 'CPU'}",
+        platform=platform, values=values, line=run.line,
+        kernel_calls=run.kernel_calls, counts=counts,
+        steps=len(tr.loss_curve) * len(tr.train_loader),
+        eval_batches=len(tr.train_loader) + len(tr.test_loader),
+        layers=len(tr.spec.layers), train_s=run.train_s,
+        device=tr.params["layers"][0]["Z"].device.type,
+        seconds=time.perf_counter() - t0)
+
+
+def deep_path_checks(sm, checks, counts):
+    """A deep card run's kernel calls: L forward launches and L backward
+    calls a training step, L forward launches an evaluation batch, the
+    counts from 0 equal to them; summed into `counts`."""
+    L, kc = sm["layers"], sm["kernel_calls"]
+    counts["launches"] += sm["counts"][0]
+    counts["bwd_launches"] += sm["counts"][1]
+    checks.append((kc["train"] == (L * sm["steps"], L * sm["steps"]),
+                   f"{sm['tag']}: train {kc['train']} in {sm['steps']} steps"))
+    checks.append((kc["eval"] == (L * sm["eval_batches"], 0),
+                   f"{sm['tag']}: eval {kc['eval']} in {sm['eval_batches']} "
+                   f"batches"))
+    checks.append((sm["counts"] == tuple(map(sum, zip(*kc.values()))),
+                   f"{sm['tag']}: counts {sm['counts']} against {kc}"))
+    checks.append((sm["device"] == "cuda", f"{sm['tag']}: on the card"))
+
+
+def dgp_serving(dev, run, checks):
+    """`Predictor` on the trained DGP-2 (its fp64 card run's parameters,
+    served in fp32): moments and 95% bands of 200 samples at n=32 and
+    n=4096 (buckets 256 and 4096; a band request propagates 200 paths, so
+    the 4096 bucket is the Gram at 819,200 rows) and log_prob at n=32; 2
+    forward launches a request (one a layer) and none backward.  The card's
+    answers at n=32 against the CPU's on the same draws (`CpuDraws`)."""
+    from tgp.pytorch_tpu_torch import config as cfg
+    from tgp.pytorch_tpu_torch.data.uci import load_uci_split
+    from tgp.pytorch_tpu_torch.flows import hypernet as H
+    from tgp.pytorch_tpu_torch.ops import rbf_gram as R
+    from tgp.pytorch_tpu_torch.serve import Predictor
+    from tgp.pytorch_tpu_torch.weights import tree_map
+
+    cfg.set_precision("fp32")
+    d = load_uci_split("boston", 1)
+    tr = run.trainer
+    L = len(tr.spec.layers)
+    params = tree_map(lambda t: t.detach().float().double().cpu(), tr.params)
+    kw = dict(Y_std=d["Y_std"], Y_mean=d["Y_mean"], buckets=(256, 4096), seed=0)
+    pred = Predictor(tr.spec, params, device=dev, **kw)
+    X32, Y32 = d["X_te"][:32], d["Y_te"][:32]
+    X4096 = np.resize(d["X_tr"], (4096, d["X_tr"].shape[1]))
+    for X in (X32, X4096):
+        pred.predict(X)                                   # warm-up
+    lat, res, per = {}, {}, []
+    # --- the main path: counts from 0, L launches per request ------------
+    R.LAUNCHES = R.BWD_LAUNCHES = 0
+    for key, X, reps, call in (
+            ("dgp_moments_n32", X32, 20, dict(quantiles=None)),
+            ("dgp_moments_n4096", X4096, 10, dict(quantiles=None)),
+            ("dgp_bands_n32", X32, 10, dict()),
+            ("dgp_bands_n4096", X4096, 3, dict()),
+            ("dgp_log_prob_n32", X32, 10, None)):
+        for _ in range(reps):
+            before = R.LAUNCHES
+            t0 = time.perf_counter()
+            res[key] = (pred.log_prob(X, Y32) if call is None
+                        else pred.predict(X, **call))
+            lat.setdefault(key, []).append(time.perf_counter() - t0)
+            per.append((key, R.LAUNCHES - before))
+    launches, bwd_launches = R.LAUNCHES, R.BWD_LAUNCHES
+    # ----------------------------------------------------------------------
+    checks += [(c == L, f"{k}: {c} launches in one request") for k, c in per]
+    checks += [(launches == L * len(per),
+                f"{launches} launches, {len(per)} requests"),
+               (bwd_launches == 0, f"{bwd_launches} backward launches")]
+    for key, out in res.items():
+        if key.startswith("dgp_log_prob"):
+            checks.append((np.isfinite(out).all(), f"{key} finite"))
+            continue
+        n = 32 if key.endswith("n32") else 4096
+        checks += [(v.shape == (1, n) and np.isfinite(v).all(),
+                    f"{key} {k}: shape {v.shape}, finite") for k, v in out.items()]
+        checks.append(((out["var"] > 0).all(), f"{key}: var > 0"))
+        if "lower" in out:
+            checks.append(((out["lower"] <= out["upper"]).all(),
+                           f"{key}: lower <= upper"))
+    # the card against the CPU on the same draws
+    answers = {}
+    prev = H._draw
+    try:
+        for where in (dev, "cpu"):
+            H._draw = CpuDraws(DGP_SEED)
+            p = Predictor(tr.spec, params, device=where, **kw)
+            out = p.predict(X32)
+            answers[str(where)] = dict(mean=out["mean"], var=out["var"],
+                                       log_prob=p.log_prob(X32, Y32))
+    finally:
+        H._draw = prev
+    card, cpu = answers[str(dev)], answers["cpu"]
+    gaps = {k: float(np.max(np.abs(card[k] - cpu[k])) / np.max(np.abs(cpu[k])))
+            for k in cpu}
+    for k, g in gaps.items():
+        log(f"serving DGP-2 {k:8s} card vs CPU fp32: {g:.3e}")
+        checks.append((g <= DGP_SERVING_LIMITS[k],
+                       f"DGP serving {k}: {g} (limit {DGP_SERVING_LIMITS[k]})"))
+    p50 = {k: 1e3 * float(np.median(v)) for k, v in lat.items()}
+    for k, v in p50.items():
+        log(f"serving p50 {k:20s} {v:9.3f} ms  ({len(lat[k])} reps)")
+    profs = {}
+    for key, X, call in (("dgp_moments_n4096", X4096, dict(quantiles=None)),
+                         ("dgp_bands_n4096", X4096, dict())):
+        prof = profile_device(lambda: pred.predict(X, **call))
+        prof["busy_share_of_p50"] = prof["device_busy_ms"] / p50[key]
+        log(f"profile {key}: {prof['device_ops']} device ops, busy "
+            f"{prof['device_busy_ms']:.3f} ms = {prof['busy_share_of_p50']:.1%} "
+            f"of p50; Gram kernel {prof['gram_ms'] * 1e3:.2f} us "
+            f"({prof['gram_seen']} launches seen of {L})")
+        for name, ms in prof["top_ms"]:
+            log(f"    {ms * 1e3:9.2f} us  {name}")
+        profs[key] = prof
+    return dict(launches=launches, bwd_launches=bwd_launches, requests=len(per),
+                p50_ms=p50, gaps=gaps, profiles=profs)
+
+
+def dgp_eval_batch(dev, run, tag):
+    """One evaluation batch of a trained DGP: the training split in one
+    batch (S_test paths a row), its time (the median of 3 between CUDA
+    events), a profile, its kernel calls (L forward, 0 backward) and the
+    peak device memory."""
+    from tgp.pytorch_tpu_torch.ops import rbf_gram as R
+
+    tr = run.trainer
+    X, Y = next(iter(tr.train_loader))
+    Xd, Yd = tr._put(X), tr._put(Y)
+    tr._eval_batch(Xd, Yd)                                # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(3):
+        t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        before = (R.LAUNCHES, R.BWD_LAUNCHES)
+        t0.record()
+        out = tr._eval_batch(Xd, Yd)
+        t1.record()
+        torch.cuda.synchronize()
+        calls = (R.LAUNCHES - before[0], R.BWD_LAUNCHES - before[1])
+        times.append(t0.elapsed_time(t1))
+    prof = profile_device(lambda: tr._eval_batch(Xd, Yd))
+    ms = float(np.median(times))
+    rows = X.shape[0] * max(tr.spec.S_test, tr.S_test)
+    log(f"{tag} evaluation batch: {X.shape[0]} rows x {rows // X.shape[0]} "
+        f"paths = {rows} rows a layer, {ms:.3f} ms; {prof['device_ops']} "
+        f"device ops, busy {prof['device_busy_ms']:.3f} ms = "
+        f"{prof['device_busy_ms'] / ms:.1%}; Gram kernel "
+        f"{prof['gram_ms'] * 1e3:.2f} us; kernel calls {calls}; peak "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+    for name, t in prof["top_ms"]:
+        log(f"    {t * 1e3:9.2f} us  {name}")
+    return dict(ms=ms, rows=rows, calls=calls, profile=prof,
+                finite=bool(torch.isfinite(out[0]).all()),
+                peak_gb=torch.cuda.max_memory_allocated() / 2 ** 30)
+
+
+def ng_run(device, precision, chunks, gamma=1.0, warmup=None, move=0.0,
+           shuffle=True):
+    """The flagship (`bench.flagship_trainer`) under natural gradients: Adam
+    at `bench.LR` on the hyperparameters, gamma on q(U), one train() call a
+    chunk; the main path, its counts from 0.  `move` scales every initial
+    parameter by (1 + move); shuffle=False keeps the full
+    batch's rows in one order for every call.  Returns the Trainer and its
+    summary (host values; 'curve0' the first ELBO)."""
+    from tgp.pytorch_tpu_torch import bench, config as cfg
+    from tgp.pytorch_tpu_torch.ops import rbf_gram as R
+    from tgp.pytorch_tpu_torch.weights import tree_leaves
+
+    cfg.set_precision(precision)
+    try:
+        tr = bench.flagship_trainer(device)
+        tr.train_loader.shuffle = shuffle
+        with torch.no_grad():
+            for t in tree_leaves(tr.params):
+                t.mul_(1 + move)
+        # --- the main path: counts from 0, 1 forward + 1 backward a step
+        R.LAUNCHES = R.BWD_LAUNCHES = 0
+        for n in chunks:
+            tr.train(n, bench.LR, "adam", verbose_each=0, natgrad_gamma=gamma,
+                     natgrad_warmup=warmup)
+        counts = (R.LAUNCHES, R.BWD_LAUNCHES)
+        # ------------------------------------------------------------------
+    finally:
+        cfg.set_precision("fp32")
+    values = {"curve": np.asarray(tr.loss_curve, np.float64),
+              "kld": np.asarray(tr.kld_curve, np.float64)}
+    values["curve0"] = values["curve"][:1]
+    values.update((n, t.detach().double().cpu().numpy())
+                  for n, t in named_leaves(tr.params))
+    return tr, dict(values=values, counts=counts, steps=sum(chunks),
+                    device=tr.params["Z"].device.type)
+
+
+def natgrad_conjugate(dev):
+    """The conjugate case on the card in fp64: SVGP on the 8611 power
+    training rows (M=100, the first 100 rows, q(U) variance 1e-5,
+    lengthscale and output scale 2), fixed hyperparameters, full batch.
+    One gamma=1 `natgrad_update` lands on the optimal q(U): a second step
+    moves the ELBO by less than 1e-4 and dELBO/dq(U) is below 1e-5 of
+    |ELBO| + 1 (`tests/test_natgrad.py::test_conjugate_one_step_exact`).
+    A step is 1 forward launch and no backward call: the hyperparameters
+    are fixed, and K does not depend on q(U)."""
+    from tgp.pytorch_tpu_torch import config as cfg
+    from tgp.pytorch_tpu_torch.data.uci import load_uci_split
+    from tgp.pytorch_tpu_torch.likelihoods import LikelihoodSpec
+    from tgp.pytorch_tpu_torch.models import tgp as M
+    from tgp.pytorch_tpu_torch.ops import kernels as K, rbf_gram as R
+    from tgp.pytorch_tpu_torch.train import natgrad as NG
+
+    cfg.set_precision("fp64")
+    try:
+        d = load_uci_split("power", 1)
+        X = torch.as_tensor(d["X_tr"], dtype=torch.float64).to(dev)
+        Y = torch.as_tensor(d["Y_tr"], dtype=torch.float64).to(dev)
+        spec = M.TGPSpec(Dy=1, Dx=4, M=100, N=float(X.shape[0]),
+                         kernel=K.from_name("scale_rbf"),
+                         likelihood=LikelihoodSpec("gaussian", 1))
+        p0 = M.init_tgp_params(spec, d["X_tr"], d["X_tr"][:100],
+                               variance_scale=1e-5,
+                               kernel_init={"length_scale": 2.0,
+                                            "kernel_scale": 2.0}, device=dev)
+        e0 = float(M.elbo(spec, p0, X, Y)[0])
+        # --- the main path: counts from 0 --------------------------------
+        R.LAUNCHES = R.BWD_LAUNCHES = 0
+        p1 = NG.natgrad_update(spec, p0, X, Y, None, 1.0)
+        counts = (R.LAUNCHES, R.BWD_LAUNCHES)
+        # -------------------------------------------------------------------
+        e1 = float(M.elbo(spec, p1, X, Y)[0])
+        p2 = NG.natgrad_update(spec, p1, X, Y, None, 1.0)
+        e2 = float(M.elbo(spec, p2, X, Y)[0])
+        q = {k: p2[k].detach().clone().requires_grad_(True)
+             for k in ("q_mu", "q_L")}
+        e = M.elbo(spec, dict(p2, **q), X, Y)[0]
+        g = torch.autograd.grad(e, list(q.values()))
+        grad = max(float(t.abs().max()) for t in g)
+    finally:
+        cfg.set_precision("fp32")
+    scale = abs(e1) + 1.0
+    log(f"natgrad conjugate (SVGP power M=100 fp64, the card): ELBO {e0:.6f}"
+        f" -> {e1:.6f} after one gamma=1 step, {e2:.6f} after two "
+        f"(moved {abs(e2 - e1):.3e}); largest dELBO/dq(U) {grad:.3e} "
+        f"({grad / scale:.3e} of |ELBO| + 1); kernel calls {counts}")
+    return dict(e0=e0, e1=e1, e2=e2, grad=grad, counts=counts,
+                ok=(e1 > e0 + 10.0 and abs(e2 - e1) < 1e-4
+                    and grad < 1e-5 * scale and counts == (1, 0)))
+
+
+def deep_natgrad_phase(dev):
+    """The deep TGP (`--model DGP`) and natural gradients (`--natgrad`), as a
+    user runs them:
+      (i) DGP-2 on boston (Dx=13 inner layer, M=100) for 200 epochs, on the
+          card and on the CPU in fp64 and fp32 with the same draws
+          (`CpuDraws`), the fp64 run also held after DGP_EARLY epochs and
+          its 200-epoch gaps logged beside the CPU's run from a moved start;
+          S_test=100 evaluation; served (`dgp_serving`); its step's time;
+     (ii) DGP-2 --dgp_flow on kin8nm (InverseBoxCoxL(1), Dx=8, M=100, fp32)
+          on the card: its step's time and profile, and one evaluation batch
+          of the 7373 training rows x 100 paths (the Gram at 737,300 rows);
+    (iii) natural gradients: the conjugate step (`natgrad_conjugate`), the
+          flagship with natgrad_gamma 1.0 for 200 epochs on the card
+          against the CPU in fp64 and fp32 and its step's time, and a
+          warmup ramp of NG_WARMUP split over two train() calls against the
+          unsplit run, bit for bit, on the card.
+    L forward launches and L backward calls a DGP-L training step, L
+    forward launches a DGP evaluation batch and request, 1 and 1 a natgrad
+    step.  The CPU's runs go to 3 worker processes."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    from tgp.pytorch_tpu_torch.weights import tree_leaves
+
+    result, checks = {}, []
+    counts = {"launches": 0, "bwd_launches": 0}
+    summ, ng = {}, {}
+    t0 = time.perf_counter()
+
+    def stage(name):
+        log(f"phase 11: {name} done at {time.perf_counter() - t0:.1f} s")
+
+    cpu = {("fp64", "cpu"): ("boston", DGP_M, DGP_EPOCHS, "fp64", "cpu"),
+           ("fp32", "cpu"): ("boston", DGP_M, DGP_EPOCHS, "fp32", "cpu"),
+           ("early", "cpu"): ("boston", DGP_M, DGP_EARLY, "fp64", "cpu")}
+    with ProcessPoolExecutor(
+            max_workers=3, mp_context=multiprocessing.get_context("spawn")) as pool:
+        futures = {k: pool.submit(_job, dgp_run, *a) for k, a in cpu.items()}
+        futures["fp64", "cpu_ulp"] = pool.submit(
+            _job, dgp_run, *cpu["fp64", "cpu"], init_rel=ULP_REL)
+        ng_futures = {}
+        for b, rel in (("64", ULP_REL), ("32", ULP_REL32)):
+            ng_futures[f"cpu{b}"] = pool.submit(_job, ng_run, "cpu", f"fp{b}",
+                                                [NG_EPOCHS])
+            ng_futures[f"cpu{b}_ulp"] = pool.submit(
+                _job, ng_run, "cpu", f"fp{b}", [NG_EPOCHS], move=rel)
+            ng_futures[f"early cpu{b}"] = pool.submit(
+                _job, ng_run, "cpu", f"fp{b}", [NG_EARLY])
+        runs = {}
+        for prec in ("fp64", "fp32"):
+            runs[prec], summ[prec, "gpu"] = dgp_run(
+                "boston", DGP_M, DGP_EPOCHS, prec, "gpu")
+        summ["early", "gpu"] = dgp_run("boston", DGP_M, DGP_EARLY, "fp64",
+                                       "gpu")[1]
+        flow_run, summ["flow", "gpu"] = dgp_run(
+            "kin8nm", DGP_M, DGP_FLOW_EPOCHS, "fp32", "gpu", ("--dgp_flow",),
+            replay=None)
+        ng_trainers = {}
+        for b in ("64", "32"):
+            ng_trainers[b], ng[f"gpu{b}"] = ng_run(dev, f"fp{b}", [NG_EPOCHS])
+            ng[f"early gpu{b}"] = ng_run(dev, f"fp{b}", [NG_EARLY])[1]
+        stage("the card's runs")
+        summ.update({k: f.result() for k, f in futures.items()})
+        ng.update({k: f.result() for k, f in ng_futures.items()})
+    stage("the CPU's runs")
+
+    # (i) DGP-2 boston
+    for key, sm in summ.items():
+        moved = ", init x (1 + 1e-15)" if key[1] == "cpu_ulp" else ""
+        log(f"{sm['tag']}{moved}: {sm['line']}; kernel calls "
+            f"{sm['kernel_calls']} ({sm['seconds']:.1f} s)")
+        v = sm["values"]
+        checks.append((all(np.isfinite(v[n]).all() for n in v),
+                       f"{sm['tag']}: finite curves, parameters, metrics"))
+        if key[1] == "gpu":
+            deep_path_checks(sm, checks, counts)
+    result["lines"] = {" ".join(k): sm["line"] for k, sm in summ.items()}
+    vals = {f"{p}{b}": summ[f"fp{b}", p]["values"]
+            for p in ("gpu", "cpu") for b in ("64", "32")}
+    vals["cpu64_ulp"] = summ["fp64", "cpu_ulp"]["values"]
+    pairs = {"gpu64_vs_cpu64": ("gpu64", "cpu64"),
+             "gpu32_vs_cpu32": ("gpu32", "cpu32"),
+             "cpu64_ulp_vs_cpu64": ("cpu64_ulp", "cpu64")}
+    result["curve_course"] = curve_course(vals, ("gpu64", "cpu64_ulp"),
+                                          "DGP-2 boston")
+    gaps = {"dgp": held_gaps(vals, pairs, dgp_group, DGP_LIMITS,
+                             "DGP-2 boston", checks,
+                             logged=("cpu64_ulp_vs_cpu64",))}
+    early = {f"{p}64": summ["early", p]["values"] for p in ("gpu", "cpu")}
+    gaps["dgp early"] = held_gaps(early, {"gpu64_vs_cpu64": ("gpu64", "cpu64")},
+                                  dgp_group, DGP_EARLY_LIMITS,
+                                  f"DGP-2 boston {DGP_EARLY} epochs", checks)
+    result["dgp_step"] = step_timing(runs["fp64"].trainer, "fp64",
+                                     "DGP-2 boston fp64")
+    result["dgp_eval"] = dgp_eval_batch(dev, runs["fp64"], "DGP-2 boston fp64")
+    stage("DGP step and evaluation batch")
+    result["serving"] = dgp_serving(dev, runs["fp64"], checks)
+    counts["launches"] += result["serving"]["launches"]
+    stage("DGP serving")
+
+    # (ii) DGP-2 --dgp_flow on kin8nm
+    result["flow_step"] = step_timing(flow_run.trainer, "fp32",
+                                      "DGP-2+flow kin8nm fp32")
+    result["flow_eval"] = ev = dgp_eval_batch(dev, flow_run,
+                                              "DGP-2+flow kin8nm fp32")
+    checks.append((ev["calls"] == (2, 0) and ev["finite"],
+                   f"kin8nm evaluation batch: calls {ev['calls']}, finite "
+                   f"{ev['finite']}"))
+    for e in (result["dgp_eval"],):
+        checks.append((e["calls"] == (2, 0) and e["finite"],
+                       f"boston evaluation batch: calls {e['calls']}"))
+
+    stage("kin8nm")
+
+    # (iii) natural gradients
+    conj = result["natgrad_conjugate"] = natgrad_conjugate(dev)
+    checks.append((conj["ok"], f"natgrad conjugate step: {conj}"))
+    for k, sm in ng.items():
+        checks.append((all(np.isfinite(sm["values"][n]).all()
+                           for n in sm["values"]), f"natgrad {k}: finite"))
+        if sm["device"] == "cuda":
+            counts["launches"] += sm["counts"][0]
+            counts["bwd_launches"] += sm["counts"][1]
+            checks.append((sm["counts"] == (sm["steps"], sm["steps"])
+                           and sm["device"] == "cuda",
+                           f"natgrad {k}: counts {sm['counts']} in "
+                           f"{sm['steps']} steps"))
+    ng_vals = {k: sm["values"] for k, sm in ng.items()
+               if not k.startswith("early")}
+    result["natgrad_course"] = {
+        b: curve_course({**ng_vals, "cpu64": ng_vals[f"cpu{b}"]},
+                        (f"gpu{b}", f"cpu{b}_ulp"), f"natgrad flagship fp{b}")
+        for b in ("64", "32")}
+    ng_pairs = {"gpu64_vs_cpu64": ("gpu64", "cpu64"),
+                "gpu32_vs_cpu32": ("gpu32", "cpu32"),
+                "cpu64_ulp_vs_cpu64": ("cpu64_ulp", "cpu64"),
+                "cpu32_ulp_vs_cpu32": ("cpu32_ulp", "cpu32")}
+    # chaotic from the first step: the 200-epoch gaps are logged beside the
+    # moved starts', and the NG_EARLY-epoch runs are held below
+    gaps["natgrad"] = held_gaps(ng_vals, ng_pairs, exp_group, {},
+                                "natgrad flagship", checks,
+                                logged=tuple(ng_pairs))
+    gaps["natgrad early"] = held_gaps(
+        {k.split()[1]: sm["values"] for k, sm in ng.items()
+         if k.startswith("early")},
+        {"gpu64_vs_cpu64": ("gpu64", "cpu64"),
+         "gpu32_vs_cpu32": ("gpu32", "cpu32")},
+        exp_group, NG_EARLY_LIMITS, f"natgrad flagship {NG_EARLY} epochs",
+        checks)
+    # the 4x rule over the 200-epoch runs' first NG_EARLY epochs: the CPU's
+    # fp32 runs from the start and from the moved one bracket where fp32
+    # rounding lands the curve
+    c64 = ng_vals["cpu64"]["curve"][:NG_EARLY]
+    to64 = {r: float(np.abs(ng_vals[r]["curve"][:NG_EARLY] - c64).max()
+                     / np.abs(c64).max()) for r in ("gpu32", "cpu32", "cpu32_ulp")}
+    cpu32 = max(to64["cpu32"], to64["cpu32_ulp"])
+    log(f"natgrad flagship fp32, the curve's gap to the CPU's fp64 over "
+        f"{NG_EARLY} epochs: card {to64['gpu32']:.3e}, CPU {to64['cpu32']:.3e}, "
+        f"moved start {to64['cpu32_ulp']:.3e}")
+    result["natgrad_fp32_to_fp64"] = to64
+    checks.append((to64["gpu32"] <= max(4 * cpu32, 1e-5),
+                   f"natgrad fp32 {NG_EARLY} epochs: the card's curve "
+                   f"{to64['gpu32']} from fp64, the CPU's {to64}"))
+    result["natgrad_step"] = step_timing(ng_trainers["32"], "fp32",
+                                         "natgrad flagship fp32",
+                                         natgrad_gamma=1.0)
+    # the full batch's rows in one order in every call (a shuffling loader
+    # sums them in another order in each train() call)
+    whole = ng_run(dev, "fp32", [NG_WARMUP], warmup=NG_WARMUP, shuffle=False)
+    split = ng_run(dev, "fp32", [4, NG_WARMUP - 4], warmup=NG_WARMUP,
+                   shuffle=False)
+    same = all(torch.equal(a, b) for a, b in zip(
+        tree_leaves(whole[0].params), tree_leaves(split[0].params))) and \
+        np.array_equal(whole[1]["values"]["curve"], split[1]["values"]["curve"])
+    log(f"natgrad warmup K={NG_WARMUP}, one train() call against 4 + "
+        f"{NG_WARMUP - 4}: bitwise equal {same}; ramp position "
+        f"{split[0]._ng_t}")
+    checks.append((same and split[0]._ng_t == NG_WARMUP,
+                   "natgrad warmup split over two calls differs"))
+    for sm in (whole[1], split[1]):
+        counts["launches"] += sm["counts"][0]
+        counts["bwd_launches"] += sm["counts"][1]
+        checks.append((sm["counts"] == (NG_WARMUP, NG_WARMUP),
+                       f"natgrad warmup counts {sm['counts']}"))
+    stage("natgrad")
+    result.update(gaps=gaps, warmup_bitwise=same, **counts)
     for cond, msg in checks:
         check(cond, msg)
     return result
@@ -2591,8 +3210,11 @@ def main() -> int:
     t0 = time.perf_counter()
     surface = surface_phase(dev)
     log(f"model surface phase {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    deep = deep_natgrad_phase(dev)
+    log(f"deep and natgrad phase {time.perf_counter() - t0:.1f} s")
     paths = (serving, serving["bayes"], grad, training, experiment, idtgp, wgp,
-             classification, surface)
+             classification, surface, deep)
 
     fp32_rows = [r for r in rows if "fp32" in r["shape"]]
     train = next(r for r in rows if r["shape"] == "pair 8611+100 fp32")
@@ -2620,7 +3242,8 @@ def main() -> int:
         cuda=torch.version.cuda, build_s=build_s, kernel_rows=rows,
         big_gram=big, serving=serving, gradient=grad, training=training,
         experiment=experiment, id_tgp=idtgp, wgp=wgp,
-        classification=classification, surface=surface, record=record),
+        classification=classification, surface=surface, deep_natgrad=deep,
+        record=record),
         indent=1,
         default=_jsonable))
 

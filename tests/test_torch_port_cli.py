@@ -231,10 +231,14 @@ def test_cli_table_arch_minibatch_matches_the_jax_cli(monkeypatch, capsys,
     (["--model", "SVGP", "--rng_impl", "rbg"], "item 20"),
 ])
 def test_unported_models_and_flags_refuse(flags, item):
-    if item == "item 18":
-        # item 18 is ported: the CLI takes the solve levers (run against
-        # the JAX CLI in tests/test_torch_port_plateau.py)
-        assert pmain.refusal(pmain.parse_args(flags + ARGV)) is None
+    if item in ("item 18", "item 19"):
+        # items 18 and 19 are ported: the CLI takes the solve levers (run
+        # against the JAX CLI in tests/test_torch_port_plateau.py), --model
+        # DGP and the natgrad flags (tests/test_torch_port_deep.py and
+        # _natgrad.py)
+        args = pmain.parse_args(flags + ARGV)
+        assert pmain.refusal(args) is None
+        assert args.model != "DGP" or pmain.dgp_refusal(args) is None
         return
     with pytest.raises(SystemExit, match=f"ROADMAP Queue 1 {item}"):
         pmain.run(pmain.parse_args(flags + ARGV))
@@ -244,9 +248,9 @@ def test_cli_exits_non_zero_naming_the_item():
     env = dict(os.environ, PYTHONPATH=str(REPO))
     res = subprocess.run(
         [sys.executable, "-m", "tgp.pytorch_tpu_torch.experiments.main",
-         "--model", "DGP"] + ARGV, cwd=REPO, env=env, capture_output=True,
-        text=True, timeout=300)
-    assert res.returncode != 0 and "item 19" in res.stderr
+         "--model", "TGP", "--mesh", "4x2"] + ARGV, cwd=REPO, env=env,
+        capture_output=True, text=True, timeout=300)
+    assert res.returncode != 0 and "item 20" in res.stderr
 
 
 def test_cli_needs_a_card_unless_asked_for_the_cpu():

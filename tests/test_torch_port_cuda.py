@@ -41,6 +41,12 @@ CLASS_SHAPES = [(1, 1080, 50, 4), (1, 120, 50, 4), (3, 1080, 50, 4),
 # (M=100), and the StepTanhL run's 455 training and 51 test rows at M=20
 WGP_SHAPES = [(1, 256, 100, 13), (1, 4096, 100, 13), (1, 455, 20, 13),
               (1, 51, 20, 13)]
+# the deep TGP's: DGP-2 on boston, the inner layer 13 outputs wide (Dx=13,
+# M=100) at the 455 training rows and at S_test=100 paths of the 51 test
+# rows; --dgp_flow on kin8nm (Dx=8): the 7373 training rows, and x 100
+# paths in an evaluation batch
+DGP_SHAPES = [(13, 455, 100, 13), (13, 5100, 100, 13), (8, 7373, 100, 8),
+              (8, 737300, 100, 8)]
 
 
 @pytest.fixture
@@ -91,7 +97,7 @@ def test_kernel_matches_plain_version(dev, shape, dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 # (2, 37, 300, 50): Z too wide for the shared-memory budget, staged in chunks
 @pytest.mark.parametrize("shape", SHAPES + [TRAIN, (2, 37, 300, 50)] + CLI_SHAPES
-                         + CLASS_SHAPES + WGP_SHAPES)
+                         + CLASS_SHAPES + WGP_SHAPES + DGP_SHAPES)
 def test_pair_kernel_matches_plain_version(dev, shape, dtype):
     Xs, Zs, ks = _inputs(dev, shape, dtype)
     before = R.LAUNCHES
@@ -123,7 +129,7 @@ def test_gradients_match_autograd_of_plain_version(dev, dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("shape", [(2, 131, 77, 3), (1, 4096, 100, 4), TRAIN,
                                    (3, 1, 1, 9), (2, 37, 300, 50)] + CLI_SHAPES
-                         + CLASS_SHAPES + WGP_SHAPES)
+                         + CLASS_SHAPES + WGP_SHAPES + DGP_SHAPES)
 def test_backward_kernel_matches_plain_version(dev, shape, dtype, pair):
     Xs, Zs, ks = _inputs(dev, shape, dtype, seed=2)
     Dy, N, M, _ = shape
@@ -661,3 +667,200 @@ def test_full_covariance_adds_one_gram_launch(dev):
     assert out[0][0] == 2 and out[1][0] == 0
     _close_scaled(out[0][1], out[1][1], 1e-10)
     _close_scaled(out[0][2], out[1][2], 1e-10)
+
+
+# ---------------------------------------------------------------------------
+# the deep TGP and natural gradients
+# ---------------------------------------------------------------------------
+
+def _dgp(device, L=2, N=60, Dx=3, M=10):
+    """A DGP-L (inner layers Dx wide, a SAL(1) output flow, 10 GH nodes,
+    S_train 2, S_test 5) on seeded rows, its Trainer on `device` (fp64)."""
+    from tgp.pytorch_tpu_torch.data import ArrayDataset, DataLoader
+    from tgp.pytorch_tpu_torch.flows import generators as G, spec_from_list
+    from tgp.pytorch_tpu_torch.likelihoods import LikelihoodSpec
+    from tgp.pytorch_tpu_torch.models import deep as D, tgp as M_
+    from tgp.pytorch_tpu_torch.ops import kernels as K
+    from tgp.pytorch_tpu_torch.train import Trainer
+
+    rng = np.random.RandomState(2)
+    X, Y = rng.randn(N, Dx), rng.randn(N, 1)
+    np.random.seed(0)
+    fspec, inits = spec_from_list(G.SAL(1))
+    k = K.from_name("scale_rbf")
+    last = M_.TGPSpec(Dy=1, Dx=Dx, M=M, N=float(N), kernel=k, flow=fspec,
+                      likelihood=LikelihoodSpec("gaussian_flow", 1,
+                                                quad_points=10))
+    spec = D.DeepTGPSpec(layers=tuple(D.layer_spec(Dx, Dx, M, float(N), k)
+                                      for _ in range(L - 1)) + (last,),
+                         S_train=2, S_test=5)
+    params = D.init_deep_params(spec, X, X[:M], flow_inits=inits,
+                                device="cpu", dtype=torch.float64)
+    loaders = [DataLoader(ArrayDataset(X, Y), N, seed=0),
+               DataLoader(ArrayDataset(X[:20], Y[:20]), 100, shuffle=False)]
+    return Trainer(spec, params, loaders, np.ones(1), S_test=5, seed=0,
+                   device=device), X, Y
+
+
+@pytest.mark.parametrize("L", [2, 3])
+def test_dgp_goes_through_both_kernels_once_a_layer(dev, L):
+    """L forward launches and L backward calls a training step, L forward
+    launches an evaluation batch and a served request, none backward."""
+    pcfg.set_precision("fp64")
+    try:
+        tr, X, Y = _dgp(dev, L)
+        before = (R.LAUNCHES, R.BWD_LAUNCHES)
+        tr.train(3, 0.01, verbose_each=0)
+        assert (R.LAUNCHES - before[0], R.BWD_LAUNCHES - before[1]) == (3 * L,
+                                                                        3 * L)
+        before = R.LAUNCHES
+        m = tr.compute_metrics()
+        assert R.LAUNCHES == before + 2 * L          # 2 evaluation batches
+        assert np.isfinite(m["test"]["logL"]).all()
+        pred = Predictor(tr.spec, tr.params, buckets=(16, 64))
+        before, bwd = R.LAUNCHES, R.BWD_LAUNCHES
+        out = pred.predict(X[:20], samples=30)
+        lp = pred.log_prob(X[:20], Y[:20])
+        assert R.LAUNCHES == before + 2 * L and R.BWD_LAUNCHES == bwd
+    finally:
+        pcfg.set_precision("fp32")
+    assert np.isfinite(out["mean"]).all() and np.isfinite(lp).all()
+    assert (out["lower"] <= out["upper"]).all()
+
+
+def test_dgp_on_the_card_matches_the_cpu(dev, monkeypatch):
+    """5 training steps of DGP-2 on the same draws: the curves and every
+    parameter, fp64, relative to the largest entry (1e-10)."""
+    pcfg.set_precision("fp64")
+    try:
+        runs = []
+        for device in (dev, "cpu"):
+            _cpu_draws(monkeypatch, 5)
+            tr, _, _ = _dgp(device)
+            tr.train(5, 0.01, verbose_each=0)
+            runs.append(tr)
+    finally:
+        pcfg.set_precision("fp32")
+    gpu, cpu = runs
+    assert _rel(gpu.loss_curve, cpu.loss_curve) <= 1e-10
+    for a, b in zip(weights.tree_leaves(gpu.params),
+                    weights.tree_leaves(cpu.params)):
+        assert _rel(a, b) <= 1e-10
+
+
+def test_natgrad_step_launches_once_and_lands_on_the_conjugate_optimum(dev):
+    """One gamma=1 natural-gradient step of a conjugate SVGP (fp64, fixed
+    hyperparameters, full batch) is 1 forward launch and no backward call
+    (K does not depend on q(U)) and lands on the optimal q(U)
+    (`tests/test_natgrad.py`'s tolerance)."""
+    from tgp.pytorch_tpu_torch.likelihoods import LikelihoodSpec
+    from tgp.pytorch_tpu_torch.models import tgp as M_
+    from tgp.pytorch_tpu_torch.ops import kernels as K
+    from tgp.pytorch_tpu_torch.train import natgrad as NG
+
+    rng = np.random.RandomState(0)
+    Xn, Yn = rng.randn(80, 2), rng.randn(80, 1)
+    pcfg.set_precision("fp64")
+    try:
+        spec = M_.TGPSpec(Dy=1, Dx=2, M=12, N=80.0,
+                          kernel=K.from_name("scale_rbf"),
+                          likelihood=LikelihoodSpec("gaussian", 1))
+        p0 = M_.init_tgp_params(spec, Xn, Xn[:12], variance_scale=1e-5,
+                                kernel_init={"length_scale": 2.0,
+                                             "kernel_scale": 2.0}, device=dev)
+        X, Y = (torch.tensor(a, device=dev) for a in (Xn, Yn))
+        before = (R.LAUNCHES, R.BWD_LAUNCHES)
+        p1 = NG.natgrad_update(spec, p0, X, Y, None, 1.0)
+        assert (R.LAUNCHES - before[0], R.BWD_LAUNCHES - before[1]) == (1, 0)
+        e0, e1 = (float(M_.elbo(spec, p, X, Y)[0]) for p in (p0, p1))
+        e2 = float(M_.elbo(spec, NG.natgrad_update(spec, p1, X, Y, None, 1.0),
+                           X, Y)[0])
+    finally:
+        pcfg.set_precision("fp32")
+    assert e1 > e0 + 10.0 and abs(e2 - e1) < 1e-4
+
+
+def _ng_trainer(device, batch, move=0.0, N=60, M=6):
+    """A TGP (Dy=1, Dx=3, a SAL(1) flow, M inducing points, 10 GH nodes) on
+    N seeded rows from a perturbed init, every initial parameter scaled by
+    (1 + move); its Trainer on `device` (fp64), training rows in batches of
+    `batch` (the permutation is drawn on the host)."""
+    from tgp.pytorch_tpu_torch.data import ArrayDataset, DataLoader
+    from tgp.pytorch_tpu_torch.flows import generators as G, spec_from_list
+    from tgp.pytorch_tpu_torch.likelihoods import LikelihoodSpec
+    from tgp.pytorch_tpu_torch.models import tgp as M_
+    from tgp.pytorch_tpu_torch.ops import kernels as K
+    from tgp.pytorch_tpu_torch.train import Trainer
+
+    rng = np.random.RandomState(3)
+    X, Y = rng.randn(N, 3), rng.randn(N, 1)
+    np.random.seed(0)
+    fspec, inits = spec_from_list(G.SAL(1))
+    spec = M_.TGPSpec(Dy=1, Dx=3, M=M, N=float(N),
+                      kernel=K.from_name("scale_rbf"), flow=fspec,
+                      likelihood=LikelihoodSpec("gaussian_flow", 1,
+                                                quad_points=10))
+    params = M_.init_tgp_params(spec, X, X[:M].copy(), flow_inits=inits,
+                                dtype=torch.float64, device="cpu")
+    params = weights.tree_map(lambda t: t * (1 + move),
+                              weights.perturb_params(params, seed=1))
+    loaders = [DataLoader(ArrayDataset(X, Y), batch, seed=2),
+               DataLoader(ArrayDataset(X[:20], Y[:20]), 100, shuffle=False)]
+    return Trainer(spec, params, loaders, np.ones(1), S_test=5, seed=0,
+                   device=device)
+
+
+# these runs are not chaotic: the CPU's own run from a start scaled by
+# 1 + 1e-15 stays within 9.4e-15 (full batch) and 3.7e-15 (minibatch) of a
+# leaf's largest entry over the same steps
+@pytest.mark.parametrize("batch, ng", [
+    pytest.param(60, dict(natgrad_gamma=1.0), id="full_batch"),
+    pytest.param(16, dict(natgrad_gamma=0.5, natgrad_warmup=9),
+                 id="minibatch-warmup"),
+])
+def test_natgrad_trainer_on_the_card_matches_the_cpu(dev, batch, ng):
+    """The Trainer's fused natural-gradient step (Adam on the
+    hyperparameters, natural gradients on q(U)): 20 full-batch steps at
+    gamma 1, or 5 epochs of 4 minibatches under a ramp, on the card and on
+    the CPU: the curves and every parameter, fp64, relative to the largest
+    entry (1e-10); 1 forward launch and 1 backward call a step."""
+    pcfg.set_precision("fp64")
+    try:
+        runs = []
+        for device in (dev, "cpu"):
+            tr = _ng_trainer(device, batch)
+            before = (R.LAUNCHES, R.BWD_LAUNCHES)
+            tr.train(20 if batch == 60 else 5, 0.01, "adam", verbose_each=0,
+                     **ng)
+            runs.append((tr, (R.LAUNCHES - before[0],
+                              R.BWD_LAUNCHES - before[1])))
+    finally:
+        pcfg.set_precision("fp32")
+    (gpu, calls), (cpu, _) = runs
+    assert calls == (20, 20)
+    for attr in ("loss_curve", "ell_curve", "kld_curve"):
+        assert _rel(getattr(gpu, attr), getattr(cpu, attr)) <= 1e-10
+    for a, b in zip(weights.tree_leaves(gpu.params),
+                    weights.tree_leaves(cpu.params)):
+        assert _rel(a, b) <= 1e-10
+
+
+def test_natgrad_warmup_split_is_bitwise_on_the_card(dev):
+    """A ramp of K=10 over one train() call and over 4 + 6: the same bits,
+    each step 1 forward launch and 1 backward call (fp32; the full batch
+    unshuffled, so that each call sums its rows in one order)."""
+    def run(chunks):
+        tr = bench.flagship_trainer(dev)
+        tr.train_loader.shuffle = False
+        before = (R.LAUNCHES, R.BWD_LAUNCHES)
+        for n in chunks:
+            tr.train(n, bench.LR, "adam", verbose_each=0, natgrad_gamma=1.0,
+                     natgrad_warmup=10)
+        assert (R.LAUNCHES - before[0], R.BWD_LAUNCHES - before[1]) == (10, 10)
+        return tr
+
+    a, b = run([10]), run([4, 6])
+    assert a._ng_t == b._ng_t == 10
+    assert np.array_equal(np.asarray(a.loss_curve), np.asarray(b.loss_curve))
+    for p, q in zip(weights.tree_leaves(a.params), weights.tree_leaves(b.params)):
+        assert torch.equal(p, q)

@@ -291,3 +291,26 @@ def test_cpu_tensors_take_the_plain_version_and_never_launch():
     assert prbf.LAUNCHES == before
     with pytest.raises(ValueError, match="CUDA"):
         prbf._launch(t64(X1), t64(X2), t64(ks))
+
+
+def test_triangular_solves_in_column_blocks_equal_one_solve(monkeypatch):
+    """A right-hand side wider than `TRSM_COLUMNS` (over the batch) is
+    solved in column blocks: the values and gradients of one solve, to
+    rounding (the CPU's trsm blocks its work by the width it is given)."""
+    from tgp.pytorch_tpu_torch.ops import linalg as la
+
+    g = torch.Generator().manual_seed(0)
+    A = torch.randn(3, 6, 6, generator=g, dtype=torch.float64)
+    L = torch.linalg.cholesky(A @ A.transpose(-1, -2) + 6 * torch.eye(6,
+                                                                      dtype=torch.float64))
+    B = torch.randn(3, 6, 1000, generator=g, dtype=torch.float64,
+                    requires_grad=True)
+    whole = [la.tril_solve(L, B), la.triu_solve(L.transpose(-1, -2), B)]
+    monkeypatch.setattr(la, "TRSM_COLUMNS", 700)       # blocks of 233 columns
+    blocks = [la.tril_solve(L, B), la.triu_solve(L.transpose(-1, -2), B)]
+    for a, b in zip(whole, blocks):
+        np.testing.assert_allclose(b.detach().numpy(), a.detach().numpy(),
+                                   rtol=1e-13, atol=1e-15)
+        ga, gb = (torch.autograd.grad(torch.sin(x).sum(), B)[0] for x in (a, b))
+        np.testing.assert_allclose(gb.numpy(), ga.numpy(), rtol=1e-13,
+                                   atol=1e-15)

@@ -631,10 +631,22 @@ def test_unported_options_raise_and_name_their_item(option, item, monkeypatch):
         np.testing.assert_allclose(tr.plateau_events[0]["rel_improve"], want,
                                    rtol=1e-12)
         return
+    if option in ("natgrad_gamma", "natgrad_warmup"):
+        # natural gradients are ported (held against the JAX Trainer in
+        # tests/test_torch_port_natgrad.py): q(U) moves by them alone
+        tr = _small_trainer()
+        hyper = {k: v.detach().clone() for k, v in tr.params.items()
+                 if torch.is_tensor(v)}
+        warm = dict(natgrad_warmup=3) if option == "natgrad_warmup" else {}
+        tr.train(2, 0.0, natgrad_gamma=1.0, verbose_each=0, **warm)
+        assert np.isfinite(np.asarray(tr.loss_curve, np.float64)).all()
+        assert tr._ng_t == (2 if warm else 0)
+        for k in ("q_mu", "q_L"):
+            assert not torch.equal(tr.params[k], hyper[k])
+        assert torch.equal(tr.params["Z"], hyper["Z"])
+        return
     with pytest.raises(NotImplementedError, match=item):
-        if option in ("natgrad_gamma", "natgrad_warmup"):
-            _small_trainer().train(2, 0.01, **{option: 1})
-        elif option == "lbfgs":
+        if option == "lbfgs":
             _small_trainer().train(2, 0.01, "lbfgs")
         elif option in ("mesh", "track_fn"):
             _small_trainer(**{option: object()})

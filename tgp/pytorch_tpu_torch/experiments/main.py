@@ -1,13 +1,15 @@
-"""The experiment CLI of the port, for SVGP, TGP, ID_TGP and WGP:
+"""The experiment CLI of the port, for SVGP, TGP, ID_TGP, WGP and DGP:
 
     python -m tgp.pytorch_tpu_torch.experiments.main \\
-        --model {SVGP,TGP,ID_TGP,WGP} --dataset <name> \\
+        --model {SVGP,TGP,ID_TGP,WGP,DGP} --dataset <name> \\
         --train_test_seed_split S --num_inducing M [--epochs E] \\
         [--precision fp64|fp32] [--platform gpu|cpu] \\
         [--nnet_inference MC_dropout|mean_field_gaussian] \\
         [--warp_arch SAL|log_exp|StepTanhL] [--warp_terms K] \\
         [--fast_solves] [--solve_precision highest|high|default] \\
-        [--solve_warmup_epochs E] [--plateau_guard [warn|raise|recover]]
+        [--solve_warmup_epochs E] [--plateau_guard [warn|raise|recover]] \\
+        [--natgrad GAMMA [--natgrad_warmup K] [--natgrad_force]] \\
+        [--layers L] [--dgp_flow] [--S_train S]
 
 It takes the flags of the repo's `experiments/main.py` (the JAX package's
 CLI) and does what that CLI does for these models: the UCI split, k-means
@@ -28,15 +30,24 @@ card: three TF32 passes for 'high', one bf16 pass for 'default'),
 (that many epochs at trsm/'highest' first, then the requested mode with
 the Adam moments carried), and `--plateau_guard` (the Trainer's stall
 detector; fast solves at a reduced precision without a warm-up turn on its
-`recover` action by default, with a WARNING line).
+`recover` action by default, with a WARNING line).  `--natgrad GAMMA`
+trains q(U) by natural gradients of that size after each Adam step on the
+rest (`train/natgrad.py`; a Step* arch refuses GAMMA above 0.3 without
+`--natgrad_force`), `--natgrad_warmup K` ramping GAMMA over the first K
+steps.  DGP is the deep TGP (`models/deep.py`): `--layers` - 1 inner
+layers Dx wide with the identity mean, then the output layer, trained by
+doubly-stochastic VI on `--S_train` paths and evaluated on `--S_test`;
+`--dgp_flow` puts the dataset's table flow on the output layer (a deep
+TGP; not the Step* archs).  It prints `DGP-L[+flow]` in the result line
+and refuses the levers the JAX CLI refuses for it (--natgrad, the solve
+levers, --mesh, --plateau_guard).
 Defaults are the paper's: batch 10000, 15000 epochs, lr 0.01, noise 0.05,
 lengthscale and output scale 2, q(U) variance 1e-5, whitened, fp64 with 100
 quadrature points, S_test 100.
 
 It runs on the card (`--platform gpu`, the default) or, when asked, on the
-CPU; without a card and without `--platform cpu` it exits non-zero.  Models
-and options the port does not have yet exit non-zero and name their ROADMAP
-item.
+CPU; without a card and without `--platform cpu` it exits non-zero.  Options the
+port does not have yet exit non-zero and name their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -53,8 +64,8 @@ def parse_args(argv=None):
     p = argparse.ArgumentParser(description="TGP on the GPU (PyTorch port)")
     p.add_argument("--model", required=True,
                    choices=["SVGP", "TGP", "ID_TGP", "WGP", "DGP"],
-                   help="SVGP, TGP, ID_TGP and WGP are ported; DGP exits "
-                        "naming its ROADMAP item")
+                   help="DGP is the deep TGP (--layers, --dgp_flow, "
+                        "--S_train)")
     p.add_argument("--layers", type=int, default=2, help="DGP depth")
     p.add_argument("--dgp_flow", action="store_true")
     p.add_argument("--S_train", type=int, default=1)
@@ -103,14 +114,8 @@ def parse_args(argv=None):
 def refusal(args):
     """The message for a model or option the port lacks, naming its
     ROADMAP Queue 1 item, or None."""
-    if args.model == "DGP":
-        return ("--model DGP (deep GPs) is not ported yet (ROADMAP Queue 1 "
-                "item 19)")
     levers = [
         (args.precision == "bf16", "--precision bf16", 20),
-        (args.natgrad is not None, "--natgrad", 19),
-        (args.natgrad_force, "--natgrad_force", 19),
-        (args.natgrad_warmup is not None, "--natgrad_warmup", 19),
         (args.mesh is not None, "--mesh", 20),
         (args.checkpoint_dir is not None, "--checkpoint_dir", 20),
         (args.rng_impl == "rbg", "--rng_impl rbg", 20),
@@ -148,8 +153,24 @@ class Run:
     line_bayes: str | None = None
 
 
+def dgp_refusal(args):
+    """The message for a lever the JAX CLI refuses with --model DGP, or
+    None (JAX `experiments/main.py:155-170`)."""
+    if args.natgrad:
+        return ("--natgrad needs a single-layer q(U); the deep stack keeps "
+                "Adam on q (train/natgrad.py guard)")
+    if args.fast_solves or args.solve_precision != "highest":
+        return ("--fast_solves/--solve_precision are not wired into the DGP "
+                "layer specs (measured guidance covers shallow models only)")
+    if args.mesh or args.plateau_guard:
+        return ("--mesh/--plateau_guard are not wired into the DGP path "
+                "(battery.py --model DGP --mesh shards the seed axis if that "
+                "is what you need)")
+    return None
+
+
 def run(args) -> Run:
-    msg = refusal(args)
+    msg = (dgp_refusal(args) if args.model == "DGP" else None) or refusal(args)
     if msg:
         raise SystemExit(msg)
 
@@ -184,6 +205,8 @@ def run(args) -> Run:
     Dy, Dx = dc["Dy"], dc["Dx"]
     Z0 = kmeans_centers(dc["X_tr"], args.num_inducing, n_init=10,
                         seed=cfg.config_seed)
+    if args.model == "DGP":
+        return run_dgp(args, loaders, dc, Z0, device)
 
     # ---- flow architecture -------------------------------------------------
     hp = return_hyperparams("SVGP" if args.model == "WGP" else args.model,
@@ -311,18 +334,21 @@ def run(args) -> Run:
         trainer.plateau_guard = {"window": 2000, "min_rel_improve": 1e-4,
                                  "max_fraction": 0.5,
                                  "action": plateau_action}
+    natgrad = dict(natgrad_gamma=args.natgrad,
+                   natgrad_warmup=args.natgrad_warmup,
+                   natgrad_force=args.natgrad_force)
     calls0 = (R.LAUNCHES, R.BWD_LAUNCHES)
     t0 = time.time()
     if warmup:
         print(f"==== solve warmup: {warmup} epochs at trsm/'highest' ====")
         trainer.train(warmup, args.lr, "adam",
                       optimisation_schedule=([1.0], [specs]),
-                      verbose_each=args.verbose_each)
+                      verbose_each=args.verbose_each, **natgrad)
         trainer.spec = spec_final
     if args.epochs - warmup > 0:
         trainer.train(args.epochs - warmup, args.lr, "adam",
                       optimisation_schedule=([1.0], [specs]),
-                      verbose_each=args.verbose_each)
+                      verbose_each=args.verbose_each, **natgrad)
     train_time = time.time() - t0
     calls = [(R.LAUNCHES, R.BWD_LAUNCHES)]
     m = trainer.compute_metrics()
@@ -359,6 +385,74 @@ def run(args) -> Run:
                train_s=train_time, line=line, kernel_calls=kernel_calls,
                anchor_fit=anchor_fit, anchor_fit_s=anchor_s,
                metrics_bayes=m_ba, line_bayes=line_ba)
+
+
+def run_dgp(args, loaders, dc, Z0, device) -> Run:
+    """The deep (T)GP protocol (JAX `experiments/main.py:136-219`):
+    --layers - 1 inner SVGP layers Dx wide with the identity mean, then the
+    output layer (Gaussian, or the dataset's table flow with --dgp_flow),
+    the inducing locations propagated through the stack, Adam for --epochs,
+    then the test metrics and the `DGP-L[+flow]` result line."""
+    from .. import config as cfg
+    from ..flows.core import IDENTITY_SPEC
+    from ..likelihoods.gaussian import LikelihoodSpec
+    from ..models import tgp as M
+    from ..models.deep import DeepTGPSpec, init_deep_params, layer_spec
+    from ..ops import kernels as K, rbf_gram as R
+    from ..train import Trainer
+    from . import flow_arch as FA
+
+    Dy, Dx = dc["Dy"], dc["Dx"]
+    kernel = K.from_name("scale_rbf")
+    flow_spec, flow_inits = IDENTITY_SPEC, None
+    if args.dgp_flow:
+        np.random.seed(cfg.config_seed)
+        arch, nb, _ = FA.resolve_tgp_arch(args.dataset)
+        if FA.is_step_arch(arch):
+            raise SystemExit("--dgp_flow supports the non-step table archs "
+                             "(identity-fit of step warps inside a deep "
+                             "stack is untested)")
+        flow_spec, flow_inits = FA.build_point_flow(arch, nb)
+        lik = LikelihoodSpec("gaussian_flow", Dy, noise_is_shared=False,
+                             quad_points=cfg.quad_points)
+    else:
+        lik = LikelihoodSpec("gaussian", Dy, noise_is_shared=False)
+    inner = [layer_spec(Dx, Dx, args.num_inducing, float(dc["N_tr"]), kernel,
+                        whiten=True)
+             for _ in range(args.layers - 1)]
+    last = M.TGPSpec(Dy=Dy, Dx=Dx, M=args.num_inducing, N=float(dc["N_tr"]),
+                     kernel=kernel, likelihood=lik, flow=flow_spec,
+                     mean="zero", whiten=True)
+    spec = DeepTGPSpec(layers=tuple(inner) + (last,), S_train=args.S_train,
+                       S_test=args.S_test)
+    params = init_deep_params(
+        spec, dc["X_tr"], Z0, variance_scale=1e-5, mean_scale=0.0,
+        kernel_init={"length_scale": 2.0, "kernel_scale": 2.0,
+                     "noisy_variance": 1e-6},
+        noise_init=0.05, flow_inits=flow_inits, device=device)
+
+    trainer = Trainer(spec, params, loaders, dc["Y_std"], S_test=args.S_test,
+                      seed=args.train_seed, device=device)
+    calls = [(R.LAUNCHES, R.BWD_LAUNCHES)]
+    t0 = time.time()
+    trainer.train(args.epochs, args.lr, "adam", verbose_each=args.verbose_each)
+    train_time = time.time() - t0
+    calls.append((R.LAUNCHES, R.BWD_LAUNCHES))
+    m = trainer.compute_metrics()
+    calls.append((R.LAUNCHES, R.BWD_LAUNCHES))
+    test = m["test"]
+    print("\n=====================================")
+    print("== Results obtained after training ==")
+    print("=====================================")
+    tag = f"DGP-{args.layers}" + ("+flow" if args.dgp_flow else "")
+    line = (f"Dataset {args.dataset}, M {args.num_inducing}, {tag}, "
+            f"Test NLL {-test['logL'][0]:.3f}, Test RMSE {test['rmse'][0]:.3f} "
+            f"({train_time:.1f}s train)")
+    print(line, flush=True)
+    kernel_calls = {k: tuple(b - a for a, b in zip(calls[i], calls[i + 1]))
+                    for i, k in enumerate(("train", "eval"))}
+    return Run(metrics=m, trainer=trainer, Z0=Z0, identity_fit=None,
+               train_s=train_time, line=line, kernel_calls=kernel_calls)
 
 
 if __name__ == "__main__":

@@ -27,8 +27,9 @@ S_MC hypernet draws on one leading axis, one `marginal_qf` for all of
 them; per-output flow architectures (`flow_per_output`) loop the outputs.
 Every likelihood is ported: Gaussian, Gaussian through the flow, the
 warped GP (an observation warp T), and classification (Bernoulli with a
-Gauss-CDF link, categorical MC softmax).  Not ported yet: `spec.remat`
-(ROADMAP Queue 1 item 21).
+Gauss-CDF link, categorical MC softmax).  The public functions dispatch
+on `spec.layers` to the deep TGP (`models/deep.py`).  Not ported yet:
+`spec.remat` (ROADMAP Queue 1 item 21).
 """
 
 from __future__ import annotations
@@ -149,7 +150,9 @@ class TGPSpec:
 def check_spec(spec: TGPSpec) -> None:
     """Raise NotImplementedError for a part of `spec` not ported yet (only
     `remat`), ValueError for a likelihood or flow step that cannot be
-    evaluated."""
+    evaluated.  A `DeepTGPSpec` is checked layer by layer."""
+    if deep.is_deep(spec):
+        return deep.check_spec(spec)
     if spec.remat:
         raise NotImplementedError("spec.remat (recomputation of marginal_qf and "
                                   "the warp) is not ported yet (ROADMAP Queue 1 "
@@ -467,6 +470,8 @@ def finalize_batch_norm(spec: TGPSpec, params, X):
     deterministic pass over the training inputs X (N, Dx), per output;
     returns the params with the new statistics.  The Trainer calls it after
     training; it returns `params` itself when no hypernet has batch norm."""
+    if deep.is_deep(spec):
+        return deep.finalize_batch_norm(spec, params, X)
     if not spec.has_bn_flow:
         return params
     fp = params["flow"]
@@ -501,7 +506,10 @@ def elbo(spec: TGPSpec, params, X, Y, rng=None):
     reaches them (the JAX package keeps their keys apart with
     `fold_in(rng, 7919)`, JAX `models/tgp.py:555-563`).
     Returns (elbo, ell, kld), all 0-d tensors (maximise the elbo).
+    A `DeepTGPSpec` dispatches to `deep.elbo`.
     """
+    if deep.is_deep(spec):
+        return deep.elbo(spec, params, X, Y, rng)
     MB = X.shape[0]
     X3 = _ensure_3d(spec, X)
     mu, var, prior = _marginal_qf(spec, params, X3, diagonal=True)
@@ -547,7 +555,13 @@ def predictive_distribution(spec: TGPSpec, params, X, *, S_MC: int = 1,
     Returns (m1, m2, mu_f, var_f); for classification m1 is the class
     probabilities (MB, C) and m2 is None (JAX `models/tgp.py:595-672`).
     The categorical likelihood draws its MC normals from `rng` (required).
+    A `DeepTGPSpec` dispatches to `deep.predictive_distribution`, `qf`
+    being a `deep.propagate` result there.
     """
+    if deep.is_deep(spec):
+        return deep.predictive_distribution(
+            spec, params, X, S_MC=S_MC, fully_bayesian=fully_bayesian,
+            rng=rng, prop=qf)
     X3 = _ensure_3d(spec, X)
     mu, var = qf if qf is not None else marginal_qf(spec, params, X3)
     lik = spec.likelihood
@@ -592,7 +606,7 @@ def predictive_distribution(spec: TGPSpec, params, X, *, S_MC: int = 1,
 
 def test_log_likelihood(spec: TGPSpec, params, X, Y, Y_std, *, S_MC: int = 1,
                         fully_bayesian: bool = False, rng=None,
-                        reduce: bool = True):
+                        reduce: bool = True, qf=None):
     """log p(Y*|X*) per output, shape (Dy,) (or (Dy, MB) with reduce=False),
     by Gauss-Hermite quadrature; densities rescaled by Y_std (Dy,).  With
     `fully_bayesian` and a stochastic flow, a log-mean-exp over S_MC
@@ -601,8 +615,15 @@ def test_log_likelihood(spec: TGPSpec, params, X, Y, Y_std, *, S_MC: int = 1,
     (JAX `models/tgp.py:700-715`).  Classification sums the log of the true
     class's probability, clipped at 1e-12: shape (1,) (or (1, MB)).
 
-    Y is (MB, Dy), or class labels (MB,) or (MB, 1).
+    Y is (MB, Dy), or class labels (MB,) or (MB, 1).  `qf`, when given, is
+    `marginal_qf` on the same X, as in `predictive_distribution`.  A
+    `DeepTGPSpec` dispatches to `deep.test_log_likelihood`, `qf` being a
+    `deep.propagate` result there.
     """
+    if deep.is_deep(spec):
+        return deep.test_log_likelihood(
+            spec, params, X, Y, Y_std, S_MC=S_MC,
+            fully_bayesian=fully_bayesian, rng=rng, reduce=reduce, prop=qf)
     MB = X.shape[-2]
     X3 = _ensure_3d(spec, X)
     lik = spec.likelihood
@@ -611,11 +632,11 @@ def test_log_likelihood(spec: TGPSpec, params, X, Y, Y_std, *, S_MC: int = 1,
     if lik.is_classification:
         probs = predictive_distribution(spec, params, X3, S_MC=S_MC,
                                         fully_bayesian=fully_bayesian,
-                                        rng=rng)[0]
+                                        rng=rng, qf=qf)[0]
         p_true = torch.gather(probs, 1, Y.reshape(-1, 1).long())[:, 0]
         ll = torch.log(torch.clamp(p_true, 1e-12, 1.0))
         return torch.sum(ll)[None] if reduce else ll[None]
-    mu, var = marginal_qf(spec, params, X3)
+    mu, var = qf if qf is not None else marginal_qf(spec, params, X3)
     Ys = Y_std[:, None]                                   # (Dy, 1)
 
     if lik.kind in ("gaussian", "warped"):
@@ -662,8 +683,12 @@ def sample_marginal(spec: TGPSpec, params, X, S: int, rng: torch.Generator,
 
     Draws come from the torch.Generator `rng` (on the tensors' device); with
     `fully_bayesian` and a stochastic flow, each sample takes its own
-    hypernet draw.  Returns (fk, mu, var, f0): fk, f0 (S, Dy, MB).
+    hypernet draw.  Returns (fk, mu, var, f0): fk, f0 (S, Dy, MB).  A
+    `DeepTGPSpec` dispatches to `deep.sample_marginal`.
     """
+    if deep.is_deep(spec):
+        return deep.sample_marginal(spec, params, X, S, rng, fully_bayesian,
+                                    prop=qf)
     X3 = _ensure_3d(spec, X)
     mu, var = qf if qf is not None else marginal_qf(spec, params, X3)
     eps = torch.randn((S,) + tuple(mu.shape), generator=rng, dtype=mu.dtype,
@@ -685,8 +710,12 @@ def sample_predictive(spec: TGPSpec, params, X, S: int, rng: torch.Generator,
     noise; for the warped GP, T^{-1} of f + noise; a Bernoulli draw of
     Phi(f); a categorical draw from softmax(f) (labels, shape (1, S, MB)).
 
-    Returns (y_samples, fk, f0) with y (Dy, S, MB).
+    Returns (y_samples, fk, f0) with y (Dy, S, MB).  A `DeepTGPSpec`
+    dispatches to `deep.sample_predictive`, which returns (y, f0, mu).
     """
+    if deep.is_deep(spec):
+        return deep.sample_predictive(spec, params, X, S, rng, fully_bayesian,
+                                      prop=qf)
     lik = spec.likelihood
     lp = params["likelihood"]
     check_likelihood(lik)
@@ -705,3 +734,8 @@ def sample_predictive(spec: TGPSpec, params, X, S: int, rng: torch.Generator,
         if lik.kind == "warped":
             y = flow_inverse(lik.warp_flow, lp["warp"], y)
     return y.transpose(0, 1), fk, f0
+
+
+# the deep TGP's module imports this one; imported last, so that each can
+# reach the other whichever is imported first
+from . import deep  # noqa: E402

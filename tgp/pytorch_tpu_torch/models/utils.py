@@ -1,6 +1,6 @@
-"""Model utilities: pointwise confidence intervals and prior samples, the
-port of the JAX package's `models/utils.py` (`propagate_inducing`, for deep
-stacks, waits for ROADMAP Queue 1 item 19 with the deep models).
+"""Model utilities: pointwise confidence intervals, prior samples and the
+propagation of inducing locations through a deep stack, the port of the JAX
+package's `models/utils.py`.
 """
 
 from __future__ import annotations
@@ -8,12 +8,14 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import config as cfg
+from ..flows import hypernet
 from ..flows.core import flow_inverse
 from ..likelihoods.warped import warped_unwarped_moments
 from ..ops import kernels as kernels_mod
 from ..ops.linalg import safe_cholesky
 from . import tgp as tgp_mod
-from .means import mean_apply
+from .means import mean_apply, projection_matrix
 from .tgp import TGPSpec, _ensure_3d, _expand_tree
 
 
@@ -67,7 +69,8 @@ def compute_95_and_median_confidence_intervals(spec, params, X, S, rng,
 
 def sample_prior(spec: TGPSpec, params, X, S: int, rng):
     """S samples from the GP prior p(f) at X, drawn from the generator
-    `rng`: (S, Dy, MB) (JAX `models/utils.py:73-87`)."""
+    `rng` through `flows.hypernet._draw`: (S, Dy, MB) (JAX
+    `models/utils.py:73-87`)."""
     X3 = _ensure_3d(spec, X)
     Dy = spec.Dy
     kp = (_expand_tree(params["kernel"], Dy) if spec.K_is_shared
@@ -77,6 +80,45 @@ def sample_prior(spec: TGPSpec, params, X, S: int, rng):
     Kxx = kernels_mod.gram(spec.kernel, kp, X3, X3, same=True)
     mu = mean_apply(spec.mean, mp, X3)
     L, _ = safe_cholesky(Kxx)
-    eps = torch.randn((S,) + tuple(mu.shape), generator=rng, dtype=mu.dtype,
-                      device=mu.device)
+    eps = hypernet._draw("normal", (S,) + tuple(mu.shape), None, rng,
+                         mu.dtype, mu.device)
     return mu[None] + torch.einsum("dnm,sdm->sdn", L, eps)
+
+
+def propagate_inducing(spec: TGPSpec, params, Z, out_dim: int, rng=None,
+                       how: str = "salimbeni", W=None):
+    """Inducing locations Z (M, in_dim) carried through a layer of a deep
+    stack, as numpy (M, out_dim) (JAX `models/utils.py:88-116`):
+
+      'salimbeni'          : Z @ W, W the identity mean's projection,
+      'sampling'           : one draw of the layer's GP prior at Z,
+      'salimbeni+sampling' : the projection, its zero-padded columns
+                             (out_dim > in_dim) replaced by the draw.
+
+    `W` reuses the layer's projection (the SVD of the training inputs), so
+    that Z lands in the subspace of the propagated inputs; by default it is
+    the SVD of Z.  The draw comes from the generator `rng` (a CPU generator
+    seeded with `config.config_seed` when None) on the params' device.
+    """
+    Z = np.asarray(Z)
+    in_dim = Z.shape[-1]
+
+    def draw():
+        ref = params["q_mu"]
+        gen = rng
+        if gen is None:
+            gen = torch.Generator(device=ref.device).manual_seed(cfg.config_seed)
+        Zt = torch.as_tensor(Z, dtype=ref.dtype).to(ref.device)
+        with torch.no_grad():
+            f = sample_prior(spec, params, Zt, 1, gen)[0]      # (Dy, M)
+        return f.cpu().numpy().T
+
+    if how == "sampling":
+        return draw()
+    if how not in ("salimbeni", "salimbeni+sampling"):
+        raise ValueError(how)
+    W = projection_matrix(in_dim, out_dim, Z) if W is None else W
+    Z_out = Z @ W
+    if how == "salimbeni+sampling" and out_dim > in_dim:
+        Z_out[:, in_dim:out_dim] = draw()[:, in_dim:out_dim]
+    return Z_out

@@ -145,14 +145,38 @@ def einsum_at(eq: str, a, b, mode: str = "highest"):
     return out[..., 0] if squeeze else out
 
 
+#: right-hand-side columns of one triangular solve, summed over the batch.
+#: cuBLAS's batched trsm slows down a thousandfold past a few million
+#: columns: on an NVIDIA H100 at 13 x 100 x n it takes 19.9 ms (fp32) and
+#: 24.5 ms (fp64, at n = 409,600) up to n = 512,000 (6.66M columns), and
+#: 18.9 s and 22.3 s at 614,400 (7.99M), in either layout
+#: (`tools/trsm_columns.py`).  The limit sits below that bracket, which was
+#: measured at this batch and M only.  Wider right-hand sides go in column
+#: blocks; a column's solve does not depend on the others.
+TRSM_COLUMNS = 1 << 22
+
+
+def _solve_triangular(A, B, upper: bool):
+    n = B.shape[-1]
+    step = max(1, TRSM_COLUMNS * n // max(B[..., 0, :].numel(), 1))
+    if n <= step:
+        return torch.linalg.solve_triangular(A, B, upper=upper)
+    # the blocks joined as rows of X^T: cuBLAS returns X column-major, so
+    # each block of X^T is one contiguous run per matrix
+    Bt = B.transpose(-1, -2)
+    return torch.cat([torch.linalg.solve_triangular(
+        A, Bt[..., i:i + step, :].transpose(-1, -2), upper=upper
+    ).transpose(-1, -2) for i in range(0, n, step)], dim=-2).transpose(-1, -2)
+
+
 def tril_solve(L, B):
     """Solve L X = B with L lower-triangular (batched)."""
-    return torch.linalg.solve_triangular(L, B, upper=False)
+    return _solve_triangular(L, B, upper=False)
 
 
 def triu_solve(U, B):
     """Solve U X = B with U upper-triangular (batched)."""
-    return torch.linalg.solve_triangular(U, B, upper=True)
+    return _solve_triangular(U, B, upper=True)
 
 
 def cholesky_solve(L, B):

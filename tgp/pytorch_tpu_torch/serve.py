@@ -17,7 +17,12 @@ Typical use:
 A classification model answers {"probs": (n, C)}, one `marginal_qf` a
 request.  A warped-GP model's moments, samples and bands come back in data
 units through the warp's inverse (Newton's method for a warp without an
-analytic one).
+analytic one).  A deep TGP (`models.deep.DeepTGPSpec`) propagates each
+request's rows once, along max(spec.S_test, samples) paths from the
+request's generator: one `marginal_qf` a layer, shared by the moments (the
+mixture over spec.S_test paths), the samples and the bands (one sample a
+path); `log_prob` is the double-integration estimator over spec.S_test
+paths.
 """
 
 from __future__ import annotations
@@ -28,7 +33,7 @@ import numpy as np
 import torch
 
 from . import config as cfg
-from .models import tgp as tgp_mod
+from .models import deep, tgp as tgp_mod
 from .models.tgp import TGPSpec
 from .weights import tree_map
 
@@ -116,19 +121,28 @@ class Predictor:
                     f"quantiles must be two values in (0, 1), got {quantiles}")
             quantiles = qs
         Xp, n = self._pad(X)
-        X3 = tgp_mod._ensure_3d(self.spec, self._to_device(Xp))
+        Xd = self._to_device(Xp)
         spec, params = self.spec, self.params
         gen = (self._next_generator()
                if samples or quantiles or self._needs_rng else None)
-        qf = tgp_mod.marginal_qf(spec, params, X3)
+        n_samples = (samples or 200) if samples or quantiles else 0
+        if deep.is_deep(spec):
+            # one propagation for the moments (spec.S_test paths) and the
+            # samples (one a path)
+            X_in = Xd
+            qf = deep.propagate(spec, params, Xd, gen,
+                                max(spec.S_test, n_samples))
+        else:
+            X_in = tgp_mod._ensure_3d(spec, Xd)
+            qf = tgp_mod.marginal_qf(spec, params, X_in)
         m1, m2, _, _ = tgp_mod.predictive_distribution(
-            spec, params, X3, S_MC=self.S_MC,
+            spec, params, X_in, S_MC=self.S_MC,
             fully_bayesian=self.fully_bayesian, rng=gen, qf=qf)
         if m2 is None:              # classification: probabilities (MB, C)
             return m1, None, n, 0, None
         parts, y = [m1, m2], None
         if samples or quantiles:
-            y, _, _ = tgp_mod.sample_predictive(spec, params, X3, samples or 200,
+            y, _, _ = tgp_mod.sample_predictive(spec, params, X_in, n_samples,
                                                 gen, self.fully_bayesian, qf=qf)
             if quantiles:
                 q = self._to_device(np.asarray(quantiles, self.np_dtype))
@@ -140,7 +154,7 @@ class Predictor:
 
     @property
     def _needs_rng(self) -> bool:
-        return (self.fully_bayesian
+        return (self.fully_bayesian or deep.is_deep(self.spec)
                 or self.spec.likelihood.kind == "categorical")
 
     def _materialize(self, handle, host):

@@ -31,9 +31,21 @@ package's `train/trainer.py`.
     `self.spec` afresh, so a spec swapped between `train` calls (the CLI's
     solve warm-up) keeps the optimizer state too.
 
-Not ported yet: natural gradients and L-BFGS (ROADMAP Queue 1 item 19),
-meshes, checkpoints and evaluation on another device (item 20), `track_fn`
-and the host minibatch loop for datasets over 512 MB (item 21).
+  * Natural gradients (`natgrad_gamma`, `train/natgrad.py`): q_mu and q_L
+    leave the optimizer; each step's one backward also gives dELBO/d(m, S),
+    and a natural-gradient step on q(U) follows the optimizer's.  Its
+    halving test reads one boolean back per step.  `natgrad_warmup` ramps
+    gamma over the first K natgrad steps; the step counter carries across
+    train() calls while natgrad stays on.
+  * A deep TGP (`models.deep.DeepTGPSpec`, params {"layers": [...]}) trains
+    and evaluates through the same paths: a step is one launch of the Gram
+    kernel's forward and one backward call a layer, an evaluation batch one
+    launch a layer (the log-likelihood, the moments and the samples share
+    one propagation of the inputs).
+
+Not ported yet: L-BFGS (ROADMAP Queue 1 item 19), meshes, checkpoints and
+evaluation on another device (item 20), `track_fn` and the host minibatch
+loop for datasets over 512 MB (item 21).
 """
 
 from __future__ import annotations
@@ -45,11 +57,12 @@ import numpy as np
 import torch
 
 from .. import config as cfg
-from ..models import tgp as tgp_mod
+from ..models import deep, tgp as tgp_mod
 from ..models.tgp import TGPSpec
-from ..weights import tree_leaves, tree_map
+from ..weights import tree_leaves, tree_map, tree_unflatten
 from . import group_adam as GA
 from .metrics import calibration_measures, inside_95
+from .natgrad import gamma_at, guard_step_arch, natgrad_train_step
 from .optimizers import build_grouped_optimizer, param_paths
 
 
@@ -146,6 +159,9 @@ class Trainer:
         self._recover_pending = False
         self._opt_state_carry = None
         self._opt_state_kind = None
+        self._natgrad_gamma = None
+        self._natgrad_warmup = None
+        self._ng_t = 0          # natgrad steps taken under the warmup ramp
 
     # ------------------------------------------------------------------
     def _put(self, a):
@@ -221,6 +237,15 @@ class Trainer:
 
     def _step(self, step, X, Y):
         """One optimisation step; returns (elbo, ell, kld) on the device."""
+        if self._natgrad_gamma is not None:
+            g = None
+            if self._natgrad_warmup:
+                g = float(gamma_at(self._natgrad_gamma, self._natgrad_warmup,
+                                   self._ng_t))
+                self._ng_t += 1
+            out = natgrad_train_step(self.spec, step, self._natgrad_gamma)(
+                self.params, X, Y, self._gen, g)
+            return torch.stack(out)
         leaves = tree_leaves(self.params)
         e, ell, kld = tgp_mod.elbo(self.spec, self.params, X, Y, self._gen)
         grads = torch.autograd.grad(-e, leaves, allow_unused=True,
@@ -240,7 +265,8 @@ class Trainer:
               optimisation_schedule=None, verbose_each: int = 100,
               clip_norm: float | None = None,
               natgrad_gamma: float | None = None,
-              natgrad_warmup: int | None = None):
+              natgrad_warmup: int | None = None,
+              natgrad_force: bool = False):
         """Run the optimisation loop.
 
         optimisation_schedule = (percentages, specifications): percentages of
@@ -249,14 +275,14 @@ class Trainer:
         clip_norm scales the gradients by min(1, clip_norm / (|g| + 1e-12))
         (the global norm over every leaf) before the Adam family's step; for
         'sgd' it is optax's clip_by_global_norm.
+
+        natgrad_gamma > 0 trains q(U) by natural gradients of that size
+        (`train/natgrad.py`; a single-layer model only); natgrad_warmup K
+        ramps it as gamma * min(1, (t+1)/K) over the natgrad steps t, t
+        carried across train() calls and reset by a call without
+        natgrad_gamma.  A gamma above 0.3 with a Step* flow is refused
+        unless natgrad_force (`natgrad.guard_step_arch`).
         """
-        if natgrad_gamma is not None or natgrad_warmup is not None:
-            raise NotImplementedError("natural-gradient steps (natgrad_gamma, "
-                                      "natgrad_warmup) are not ported yet "
-                                      "(ROADMAP Queue 1 item 19)")
-        if opt == "lbfgs":
-            raise NotImplementedError("lbfgs is not ported yet (ROADMAP Queue 1 "
-                                      "item 19)")
         if optimisation_schedule is None:
             optimisation_schedule = ([1.0], [None])
         percentages, specifications = optimisation_schedule
@@ -264,6 +290,40 @@ class Trainer:
             raise ValueError(f"schedule percentages must sum to 1, got {sum(percentages)}")
 
         frozen = frozen_param_labels(self.spec, self.params)
+        if natgrad_warmup is not None and natgrad_gamma is None:
+            raise ValueError("natgrad_warmup needs natgrad_gamma")
+        if natgrad_warmup is not None and int(natgrad_warmup) < 1:
+            raise ValueError(
+                f"natgrad_warmup must be >= 1 (got {natgrad_warmup})")
+        if natgrad_gamma is None:
+            self._ng_t = 0
+        else:
+            if natgrad_gamma <= 0.0:
+                raise ValueError(
+                    f"natgrad_gamma must be > 0 (got {natgrad_gamma}); "
+                    "gamma=0 would freeze q(U) out of BOTH optimizers — "
+                    "pass None to train q(U) with the gradient optimizer")
+            if opt == "lbfgs":
+                raise NotImplementedError(
+                    "natgrad_gamma is not supported with lbfgs (two solvers "
+                    "fighting over one objective)")
+            if "q_mu" not in self.params:
+                raise NotImplementedError(
+                    "natgrad_gamma needs a single-layer q(U) at "
+                    "params['q_mu'/'q_L']; deep stacks keep Adam on q")
+            guard_step_arch(self.spec, natgrad_gamma, force=natgrad_force)
+            # q(U) leaves the gradient optimizer: the natural-gradient step
+            # after each of its steps updates it
+            paths = param_paths(self.params)
+            frozen = tree_unflatten(paths, [
+                bool(f) or p.endswith("q_mu") or p.endswith("q_L")
+                for f, p in zip(tree_leaves(frozen), tree_leaves(paths))])
+        if opt == "lbfgs":
+            raise NotImplementedError("lbfgs is not ported yet (ROADMAP Queue 1 "
+                                      "item 19)")
+        self._natgrad_gamma = natgrad_gamma
+        self._natgrad_warmup = (int(natgrad_warmup)
+                                if natgrad_warmup is not None else None)
         ep_done = 0
         ve = self.validate_each if self.validate_each else 10 ** 18
         full_batch = len(self.train_loader) == 1
@@ -429,18 +489,30 @@ class Trainer:
 
         Classification: (log p(Y|X) (1,), class probabilities (MB, C), None),
         with the same two calls; one predictive sample is drawn, as the JAX
-        Trainer draws it (JAX `train/trainer.py:888-895`), and not read."""
+        Trainer draws it (JAX `train/trainer.py:888-895`), and not read.
+
+        A deep TGP propagates the inputs once, along max(spec.S_test,
+        S_test) paths (one `marginal_qf` a layer), and the log-likelihood,
+        the moments (spec.S_test paths each) and the S_test samples share
+        them."""
         spec, params = self.spec, self.params
         is_class = spec.likelihood.is_classification
         fb = dict(S_MC=self.S_test if self.fully_bayesian else 1,
                   fully_bayesian=self.fully_bayesian, rng=self._gen)
-        log_p = tgp_mod.test_log_likelihood(spec, params, X, Y, self._Y_std_dev,
-                                            **fb)
-        X3 = tgp_mod._ensure_3d(spec, X)
-        qf = tgp_mod.marginal_qf(spec, params, X3)
-        m1 = tgp_mod.predictive_distribution(spec, params, X3, qf=qf, **fb)[0]
+        if deep.is_deep(spec):
+            X_in = X
+            qf = deep.propagate(spec, params, X, self._gen,
+                                max(spec.S_test, self.S_test))
+            log_p = tgp_mod.test_log_likelihood(
+                spec, params, X, Y, self._Y_std_dev, qf=qf, **fb)
+        else:
+            log_p = tgp_mod.test_log_likelihood(
+                spec, params, X, Y, self._Y_std_dev, **fb)
+            X_in = tgp_mod._ensure_3d(spec, X)
+            qf = tgp_mod.marginal_qf(spec, params, X_in)
+        m1 = tgp_mod.predictive_distribution(spec, params, X_in, qf=qf, **fb)[0]
         samples = tgp_mod.sample_predictive(
-            spec, params, X3, 1 if is_class else self.S_test, self._gen,
+            spec, params, X_in, 1 if is_class else self.S_test, self._gen,
             self.fully_bayesian, qf=qf)[0]
         if is_class:
             return log_p, m1, None

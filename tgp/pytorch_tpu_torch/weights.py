@@ -4,9 +4,9 @@
     arrays, into the port's params: the layout is the same dict/list tree
     (an input-dependent step's nets as `net_*/layers/[i]/{W, b, bn, ...}`),
     so this is a leaf-wise conversion.  `params_to_numpy` is its inverse.
-  * `spec_from_dict` builds the port's `TGPSpec` from the dict that the JAX
-    package's `models/serialization.py::spec_to_dict` emits, hypernet
-    specs included.
+  * `spec_from_dict` (`models/serialization.py`) builds the port's
+    `TGPSpec` or `DeepTGPSpec` from the dict that the JAX package's
+    `models/serialization.py::spec_to_dict` emits, hypernet specs included.
   * `flagship_spec` / `flagship_params` build the flagship TGP that the
     serving path is measured on (the shapes of `benchmarks/serving.py`), with
     a seeded numpy perturbation of its init so that the flow is not the
@@ -21,11 +21,11 @@ import torch
 
 from . import config as cfg
 from .flows import generators
-from .flows.core import FlowStep, spec_from_list
-from .flows.hypernet import HyperNetSpec
+from .flows.core import spec_from_list
 from .likelihoods.gaussian import LikelihoodSpec
-from .models.tgp import TGPSpec, check_spec, init_tgp_params
-from .ops.kernels import KernelSpec, from_name
+from .models.serialization import spec_from_dict  # noqa: F401
+from .models.tgp import TGPSpec, init_tgp_params
+from .ops.kernels import from_name
 
 
 def tree_map(fn, tree):
@@ -66,53 +66,6 @@ def params_to_numpy(tree):
     """The port's params -> the same tree with numpy leaves (host copies),
     which the JAX package takes as its params."""
     return tree_map(lambda t: t.detach().cpu().numpy().copy(), tree)
-
-
-def _kernel_from_dict(d) -> KernelSpec:
-    return KernelSpec(d["kind"], tuple(_kernel_from_dict(c) for c in d["children"]),
-                      d.get("ard", True))
-
-
-def _step_from_dict(d) -> FlowStep:
-    hyper = None if d["hypernet"] is None else HyperNetSpec(**d["hypernet"])
-    return FlowStep(d["kind"], d["set_restrictions"], d["add_init_f0"],
-                    d["input_dependent"], hyper, d["constraint"],
-                    d["learnable"], d["n_terms"],
-                    tuple(_step_from_dict(x) for x in d["sub"]))
-
-
-def _lik_from_dict(d) -> LikelihoodSpec:
-    return LikelihoodSpec(d["kind"], d["out_dim"], d["noise_is_shared"],
-                          d["quad_points"], d["num_classes"],
-                          tuple(_step_from_dict(s) for s in d["warp_flow"]))
-
-
-def spec_from_dict(d: dict) -> TGPSpec:
-    """The port's TGPSpec from a JAX `spec_to_dict` dict.
-
-    Raises NotImplementedError for any part the port does not cover yet.
-    """
-    if d.get("deep"):
-        raise NotImplementedError("deep TGPs are not ported yet "
-                                  "(ROADMAP Queue 1 item 19)")
-    spec = TGPSpec(
-        Dy=d["Dy"], Dx=d["Dx"], M=d["M"], N=d["N"],
-        kernel=_kernel_from_dict(d["kernel"]),
-        likelihood=_lik_from_dict(d["likelihood"]),
-        flow=tuple(_step_from_dict(s) for s in d["flow"]),
-        flow_per_output=(None if d.get("flow_per_output") is None else
-                         tuple(tuple(_step_from_dict(s) for s in f)
-                               for f in d["flow_per_output"])),
-        mean=d["mean"], whiten=d["whiten"],
-        Z_is_shared=d["Z_is_shared"], K_is_shared=d["K_is_shared"],
-        mean_is_shared=d["mean_is_shared"], q_U_is_shared=d["q_U_is_shared"],
-        flow_is_shared=d["flow_is_shared"], min_var=d["min_var"],
-        remat=d.get("remat", False),
-        fast_solves=d.get("fast_solves", False),
-        solve_precision=d.get("solve_precision", "highest"),
-    )
-    check_spec(spec)
-    return spec
 
 
 # ---------------------------------------------------------------------------
