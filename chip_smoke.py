@@ -99,6 +99,17 @@ Phases, each of which fails the run (non-zero exit) on any error:
      one call.  2 forward launches and 2 backward calls a DGP-2 step, 2
      forward launches an evaluation batch and a request; 1 and 1 a natgrad
      step.
+ 12. battery (`experiments.battery`, `train.multiseed`): the Gram pair
+     under `torch.func.vmap` over 10 replicas (one launch each way, the
+     kernel rows at R·Dy=10 in phase 2); the flagship over power seeds
+     1-10 for 30 epochs on the card against the CPU (fp64 leaf by leaf,
+     fp32 by the 4x rule) and each replica against `Trainer(seed=r)`;
+     `eval_multiseed`; the battery CLI for 200 epochs (boston SVGP, TGP
+     SAL_BCL:1, ID_TGP and DGP-2 on replica-wise `CpuDraws`, natgrad power
+     SVGP, a minibatch run) and `--ckpt` resume bitwise; the step at R=1
+     and R=10 (flagship, boston ID_TGP and DGP-2).  1 forward launch and 1
+     backward call a battery step whatever R (2 and 2 for DGP-2), 2 and 0
+     an `eval_multiseed` call.
 The line before the last holds the kernels' JSON record, the last line
 `{"ok": true, "device": {...}}`.  Details go to chiprun_out/chip_smoke.json.
 """
@@ -294,6 +305,11 @@ KERNEL_SHAPES = [  # (label, Dy, N, M, Dx, dtype, pair)
     ("pair 45500+100 Dy=13 Dx=13 fp64", 13, 45500, 100, 13, F64, True),
     ("pair 7373+100 Dy=8 Dx=8 fp32", 8, 7373, 100, 8, F32, True),
     ("pair 737300+100 Dy=8 Dx=8 fp32", 8, 737300, 100, 8, F32, True),
+    # the battery (phase 12): ten replicas folded into the output axis, the
+    # flagship's power split (8611 rows, fp32) and boston's (455 rows,
+    # Dx=13, fp64)
+    ("pair 8611+100 Dy=10 fp32", 10, 8611, 100, 4, F32, True),
+    ("pair 455+100 Dy=10 Dx=13 fp64", 10, 455, 100, 13, F64, True),
 ]
 # more rows than the earlier kernel's grid took (65535 tiles of 32)
 BIG_GRAM = ("K_xz 2200000x8 Dx=1 fp32", 1, 2_200_000, 8, 1, F32)
@@ -3168,6 +3184,515 @@ def deep_natgrad_phase(dev):
     return result
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the multi-seed battery
+# ---------------------------------------------------------------------------
+
+BAT_SEEDS = "1-10"
+BAT_EARLY = 30          # epochs of the flagship battery held leaf by leaf
+BAT_EPOCHS = 200        # epochs of the battery CLI's short runs
+BAT_MB_EPOCHS = 50      # epochs of its minibatch run
+BAT_CKPT_EPOCHS = 40    # epochs of its checkpointed runs, 2 segments
+# The flagship battery's fp64 run on the card against the CPU's after
+# BAT_EARLY epochs, and each replica against a `Trainer(seed=r)` on the
+# card, relative to the largest entry of the group in the CPU's fp64 run:
+# 10x the gaps measured on an NVIDIA H100 80GB HBM3 at 700 W.  A battery
+# step's batched GEMMs, solves and reductions sum in another order than
+# one replica's, and Adam amplifies it as on the CPU (q_L most: entries
+# whose gradient is rounding noise take steps of its sign).
+BAT_F64_LIMITS = {"gpu64_vs_cpu64": {
+    "curve": 5.0e-6, "kld": 3.5e-6, "Z": 1.9e-4, "flow": 8.4e-5,
+    "kernel/child/raw_lengthscale": 1.1e-5, "kernel/raw_outputscale": 2.1e-6,
+    "likelihood/log_var_noise": 1.7e-7, "q_L": 4.0e-3, "q_mu": 2.0e-4}}
+BAT_TRAINER_LIMITS = {"battery_vs_trainers": {
+    "curve": 7.4e-7, "kld": 3.3e-7, "Z": 1.4e-5, "flow": 1.1e-5,
+    "kernel/child/raw_lengthscale": 1.5e-6, "kernel/raw_outputscale": 3.0e-7,
+    "likelihood/log_var_noise": 2.1e-8, "q_L": 9.0e-4, "q_mu": 2.8e-5}}
+
+
+class ReplicaCpuDraws(CpuDraws):
+    """`CpuDraws` that also serves a battery: under the replica map each
+    replica r draws from its own seeded CPU generator (seed + 1 + r), so a
+    battery on the card and one on the CPU see the same draws, replica by
+    replica."""
+
+    def __init__(self, seed):
+        super().__init__(seed)
+        self.seed, self.replicas = seed, []
+
+    def __call__(self, kind, shape, p, generator, dtype, device):
+        from tgp.pytorch_tpu_torch.flows import hypernet
+
+        if not isinstance(generator, hypernet.ReplicaGenerators):
+            return super().__call__(kind, shape, p, generator, dtype, device)
+        R = len(generator.gens)
+        while len(self.replicas) < R:
+            self.replicas.append(torch.Generator().manual_seed(
+                self.seed + 1 + len(self.replicas)))
+
+        def draw(gen):
+            if kind == "keep":
+                return (torch.rand(shape, generator=gen, dtype=torch.float64)
+                        < p).to(device)
+            return torch.randn(shape, generator=gen,
+                               dtype=torch.float64).to(device, dtype)
+
+        return hypernet._generate(draw, hypernet.ReplicaGenerators(
+            self.replicas[:R], generator.token))
+
+
+def battery_args(model, dataset, M, epochs, precision, platform, seeds=None,
+                 extra=()):
+    from tgp.pytorch_tpu_torch.experiments import battery as B
+
+    return B.parse_args(["--model", model, "--dataset", dataset,
+                         "--num_inducing", str(M), "--seeds", seeds or BAT_SEEDS,
+                         "--epochs", str(epochs), "--precision", precision,
+                         "--platform", platform, *extra])
+
+
+def flagship_battery(precision, platform, epochs, seeds=None):
+    """The flagship battery (power's table arch SAL(2), M=100, the CLI's
+    per-seed splits, k-means and init) trained `epochs` full-batch steps by
+    `train_multiseed`: the main path, its counts from 0.  Returns (cell,
+    trained stack, summary of host values)."""
+    from tgp.pytorch_tpu_torch import config as cfg
+    from tgp.pytorch_tpu_torch.experiments import battery as B
+    from tgp.pytorch_tpu_torch.ops import rbf_gram as R
+    from tgp.pytorch_tpu_torch.train import multiseed as ms
+
+    cfg.set_precision(precision)
+    try:
+        args = battery_args("TGP", "power", 100, epochs, precision, platform,
+                            seeds)
+        dev = B.device_of(args)
+        cell = B.prepare(args, dev)
+        # --- the main path: counts from 0, 1 + 1 a step -------------------
+        R.LAUNCHES = R.BWD_LAUNCHES = 0
+        out, curves = ms.train_multiseed(cell.spec, cell.params, cell.X,
+                                         cell.Y, epochs, args.lr, device=dev)
+        counts = (R.LAUNCHES, R.BWD_LAUNCHES)
+        # ------------------------------------------------------------------
+    finally:
+        cfg.set_precision("fp32")
+    values = {"curve": curves["elbo"].astype(np.float64),
+              "kld": curves["kld"].astype(np.float64)}
+    values.update((n, t.double().cpu().numpy()) for n, t in named_leaves(out))
+    return cell, out, dict(values=values, counts=counts, steps=epochs,
+                           device=dev.type)
+
+
+def _battery_job(memo, *a):
+    """`flagship_battery`'s summary in a worker process (three torch
+    threads), its k-means centers those the main process computed."""
+    from tgp.pytorch_tpu_torch import data
+
+    torch.set_num_threads(3)
+    data.kmeans_centers = cached_kmeans(memo)[1]
+    return flagship_battery(*a)[2]
+
+
+def cached_kmeans(memo):
+    """`data.kmeans_centers` computed once for each split and M (host
+    numpy, the same centers every time: the phase's runs of one split would
+    repeat it), kept in `memo`; returns (the function, its cached form)."""
+    from tgp.pytorch_tpu_torch import data
+
+    fn = data.kmeans_centers
+
+    def centers(X, M, **kw):
+        key = (np.asarray(X).tobytes(), M, tuple(sorted(kw.items())))
+        if key not in memo:
+            memo[key] = fn(X, M, **kw)
+        return memo[key].copy()
+
+    return fn, centers
+
+
+def battery_timing(spec, params, X, Y, tag, calls=3, steps=20,
+                   profile_steps=5):
+    """A battery's training step on the card, fp32: the median over `calls`
+    train_multiseed calls of `steps` steps, and a profile of one call of
+    `profile_steps` (device operations and busy time a step, and its launch
+    counts).  The R generators' draws show in the operations."""
+    from tgp.pytorch_tpu_torch.ops import rbf_gram as R
+    from tgp.pytorch_tpu_torch.train import multiseed as ms
+
+    def run(n):
+        return ms.train_multiseed(spec, params, X, Y, n, 0.01,
+                                  device=params_device(params))
+
+    run(profile_steps)
+    times = []
+    for _ in range(calls):
+        t0 = time.perf_counter()
+        run(steps)
+        times.append((time.perf_counter() - t0) / steps)
+    R.LAUNCHES = R.BWD_LAUNCHES = 0
+    prof = profile_device(lambda: run(profile_steps))
+    counts = (R.LAUNCHES // 2, R.BWD_LAUNCHES // 2)    # warm-up + profiled
+    step_ms = 1e3 * float(np.median(times))
+    n = profile_steps
+    ops, busy = prof["device_ops"] / n, prof["device_busy_ms"] / n
+    log(f"{tag}: step {step_ms:.3f} ms (median of {calls} x {steps}); "
+        f"{ops:.1f} device ops, busy {busy:.3f} ms = {busy / step_ms:.1%} of "
+        f"a step; Gram forward {prof['gram_ms'] / n * 1e3:.2f} us, "
+        f"backward {prof['gram_bwd_ms'] / n * 1e3:.2f} us a step; "
+        f"kernel calls {counts} in {n} steps")
+    for name, t in prof["top_ms"]:
+        log(f"    {t * 1e3 / n:9.2f} us a step  {name}")
+    return dict(step_ms=step_ms, device_ops=ops, busy_ms=busy,
+                busy_share=busy / step_ms, counts=counts, steps=n,
+                top_ms=prof["top_ms"])
+
+
+def params_device(params):
+    from tgp.pytorch_tpu_torch.weights import tree_leaves
+    return tree_leaves(params)[0].device
+
+
+def id_cell(dev, seeds):
+    """boston's ID_TGP battery (its table's hypernets, the CLI's splits,
+    k-means and init) without the anchor fit, for timing the step."""
+    from tgp.pytorch_tpu_torch import config as cfg
+    from tgp.pytorch_tpu_torch.experiments import battery as B, flow_arch as FA
+    from tgp.pytorch_tpu_torch.likelihoods import LikelihoodSpec
+    from tgp.pytorch_tpu_torch.models import tgp as M
+    from tgp.pytorch_tpu_torch.train import multiseed as ms
+
+    cell = B.prepare(battery_args("SVGP", "boston", 100, 1, "fp32", "gpu",
+                                  seeds), dev)
+    np.random.seed(cfg.config_seed)
+    flow, inits = FA.build_id_flow("boston", 13)
+    spec = M.TGPSpec(Dy=1, Dx=13, M=100, N=float(cell.N_tr),
+                     kernel=cell.spec.kernel,
+                     likelihood=LikelihoodSpec("gaussian_flow", 1), flow=flow)
+    params = ms.stack_trees([M.init_tgp_params(
+        spec, cell.X[r], cell.params["Z"][r, 0].cpu().numpy(),
+        variance_scale=1e-5, kernel_init={"length_scale": 2.0,
+                                          "kernel_scale": 2.0},
+        flow_inits=inits, device=dev) for r in range(len(cell.seeds))])
+    return spec, params, cell.X, cell.Y
+
+
+def battery_cli(dev, model, dataset, M, epochs, extra=(), seeds=None,
+                draws=None):
+    """The battery CLI on the card as a user runs it (its output kept out of
+    the log but for the result lines), the counts from 0; with `draws`, the
+    hypernets' and the deep layers' draws come from it."""
+    import contextlib
+    import io
+
+    from tgp.pytorch_tpu_torch.experiments import battery as B
+    from tgp.pytorch_tpu_torch.flows import hypernet
+    from tgp.pytorch_tpu_torch.ops import rbf_gram as R
+
+    args = battery_args(model, dataset, M, epochs, "fp32", "gpu", seeds, extra)
+    orig = hypernet._draw
+    if draws is not None:
+        hypernet._draw = draws
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            # --- the main path: counts from 0 -----------------------------
+            R.LAUNCHES = R.BWD_LAUNCHES = 0
+            res = B.run(args)
+            counts = (R.LAUNCHES, R.BWD_LAUNCHES)
+            # --------------------------------------------------------------
+    finally:
+        hypernet._draw = orig
+    tag = f"battery {model} {dataset} {' '.join(extra)}".strip()
+    log(f"{tag}: {len(res.seeds)} seeds x {epochs} epochs in "
+        f"{time.perf_counter() - t0:.1f} s (train {res.train_s:.1f} s); "
+        f"kernel calls {res.kernel_calls}")
+    for _, _, lines, _ in res.reports:
+        for line in lines:
+            if line.strip():
+                log(f"    {line.strip()}")
+    finite = np.isfinite(res.curves["elbo"]).all() and all(
+        np.isfinite(v).all() for _, m, _, _ in res.reports for v in m.values())
+    return res, dict(tag=tag, counts=counts, finite=bool(finite),
+                     kernel_calls=res.kernel_calls, train_s=res.train_s)
+
+
+def battery_phase(dev):
+    """The multi-seed battery (`train/multiseed.py`,
+    `experiments/battery.py`) on the card:
+      (i) the Gram pair under `torch.func.vmap` over 10 replicas at the
+          flagship's and boston's shapes: one forward launch and one
+          backward call for all ten, against the kernel per replica and the
+          plain version, the backward twice bitwise;
+     (ii) the flagship battery (TGP, power seeds 1-10, SAL(2), M=100) for
+          BAT_EARLY epochs on the card and on the CPU in fp64 and fp32: fp64
+          held leaf by leaf, fp32 by the 4x rule against the CPU's fp64
+          curve; each replica against `Trainer(seed=r)` on the card; the
+          counts (1 and 1 a step), `eval_multiseed` (2 and 0 a call);
+    (iii) the step at R=1 and R=10, fp32: the flagship, and the ID_TGP and
+          DGP-2 batteries on boston whose R generators draw per replica;
+     (iv) the battery CLI for BAT_EPOCHS epochs: boston SVGP, TGP at a
+          non-step arch, ID_TGP (2 seeds: the anchor fit is 2000 epochs a
+          seed) and DGP-2 on replica-wise `CpuDraws`, natgrad power SVGP,
+          a minibatch run; finite results and their counts;
+      (v) `--ckpt`: stopped by --ckpt_stop_after and resumed, bitwise the
+          uninterrupted run."""
+    import multiprocessing
+    import shutil
+    from concurrent.futures import ProcessPoolExecutor
+
+    from tgp.pytorch_tpu_torch import config as cfg, data
+    from tgp.pytorch_tpu_torch.data import ArrayDataset, DataLoader
+    from tgp.pytorch_tpu_torch.experiments import battery as B
+    from tgp.pytorch_tpu_torch.ops import rbf_gram as R
+    from tgp.pytorch_tpu_torch.train import Trainer, multiseed as ms
+    from tgp.pytorch_tpu_torch.weights import tree_leaves
+
+    result, checks = {}, []
+    counts = {"launches": 0, "bwd_launches": 0}
+    t0 = time.perf_counter()
+
+    def stage(name):
+        log(f"phase 12: {name} done at {time.perf_counter() - t0:.1f} s")
+
+    def add(c):
+        counts["launches"] += c[0]
+        counts["bwd_launches"] += c[1]
+
+    memo = {}
+    kmeans, data.kmeans_centers = cached_kmeans(memo)
+    # the flagship's k-means centers once, for the card's runs and the CPU's
+    for seed in B.parse_seeds(BAT_SEEDS):
+        X = data.return_dataset("power", 10 ** 9, None, seed=seed,
+                                options={"shuffle_train": False})[1]["X_tr"]
+        data.kmeans_centers(X, 100, n_init=10, seed=cfg.config_seed)
+    stage("the flagship's k-means")
+
+    with ProcessPoolExecutor(
+            max_workers=2, mp_context=multiprocessing.get_context("spawn")) as pool:
+        cpu = {f"cpu{b}": pool.submit(_battery_job, memo, f"fp{b}", "cpu",
+                                      BAT_EARLY, BAT_SEEDS)
+               for b in ("64", "32")}
+
+        # (i) the mapped Gram pair: ten replicas, one launch each way
+        gen = torch.Generator(device=dev).manual_seed(12)
+        folds = []
+        for label, N, M, Dx, dtype in (("power 10 x (8611+100) fp32", 8611,
+                                        100, 4, F32),
+                                       ("boston 10 x (455+100) Dx=13 fp64",
+                                        455, 100, 13, F64)):
+            sc = min(1.0, 2.0 / Dx ** 0.5)
+            X = sc * torch.randn(10, 1, N, Dx, generator=gen, device=dev,
+                                 dtype=dtype)
+            Z = sc * torch.randn(10, 1, M, Dx, generator=gen, device=dev,
+                                 dtype=dtype)
+            ks = torch.rand(10, 1, generator=gen, device=dev, dtype=dtype) + 0.5
+            gs = [torch.randn(10, 1, n, M, generator=gen, device=dev,
+                              dtype=dtype) for n in (N, M)]
+
+            def mapped():
+                leaves = [t.clone().requires_grad_(True) for t in (X, Z, ks)]
+                Ks = torch.func.vmap(R.rbf_gram_pair)(*leaves)
+                grads = torch.autograd.grad(Ks, leaves, gs)
+                return [k.detach() for k in Ks], list(grads)
+
+            R.LAUNCHES = R.BWD_LAUNCHES = 0
+            Ks, grads = mapped()
+            calls = (R.LAUNCHES, R.BWD_LAUNCHES)
+            again = mapped()[1]
+            tol = F32_TOL if dtype == F32 else F64_TOL
+            gtol = F32_GRAD_TOL if dtype == F32 else F64_GRAD_TOL
+            err = gerr = 0.0
+            own_bits = True
+            for r in range(10):
+                ref = R.rbf_gram_pair_reference(X[r], Z[r], ks[r])
+                own = R._launch_pair(X[r], Z[r], ks[r], pair=True)
+                want = R.rbf_gram_pair_bwd(X[r], Z[r], ks[r], *ref, gs[0][r],
+                                           gs[1][r])
+                for k, o, w in zip(Ks, own, ref):
+                    assert_close(f"{label} replica {r}", k[r], w, tol)
+                    assert_close(f"{label} replica {r} own launch", k[r], o,
+                                 tol)
+                    own_bits &= torch.equal(k[r], o)
+                    err = max(err, max_err(k[r], w))
+                for g, w, nm in zip(grads, want, ("dX", "dZ", "dks")):
+                    assert_close_scaled(f"{label} replica {r} {nm}", g[r], w,
+                                        gtol)
+                    gerr = max(gerr, max_err(g[r], w))
+            same = all(torch.equal(a, b) for a, b in zip(grads, again))
+            log(f"mapped pair {label}: kernel calls {calls}, forward err "
+                f"{err:.2e} (bitwise the replicas' own launches: {own_bits}), "
+                f"backward err {gerr:.2e}, two backward runs bitwise equal "
+                f"{same}")
+            checks.append((calls == (1, 1), f"{label}: {calls} kernel calls"))
+            checks.append((same, f"{label}: two backward runs differ"))
+            folds.append(dict(label=label, calls=calls, max_abs_err=err,
+                              bwd_max_abs_err=gerr, bwd_bitwise=same,
+                              own_launch_bitwise=own_bits))
+        result["fold"] = folds
+        stage("the mapped pair")
+
+        # (ii) the flagship battery, card against the CPU
+        runs, summ = {}, {}
+        for b in ("64", "32"):
+            runs[b] = flagship_battery(f"fp{b}", "gpu", BAT_EARLY, BAT_SEEDS)
+            summ[f"gpu{b}"] = runs[b][2]
+        cell64, out64, _ = runs["64"]
+        # each replica against a Trainer(seed=r) on its split, fp64
+        cfg.set_precision("fp64")
+        try:
+            tr_vals = {}
+            for r in range(len(cell64.seeds)):
+                loader = DataLoader(ArrayDataset(cell64.X[r], cell64.Y[r]),
+                                    10 ** 9, shuffle=False)
+                tr = Trainer(cell64.spec, ms.unstack_tree(cell64.params, r),
+                             [loader], np.ones(1), seed=r, device=dev)
+                tr.train(BAT_EARLY, 0.01, verbose_each=0)
+                tr_vals[r] = tr
+            trainers = {"curve": np.stack([tr_vals[r].loss_curve for r in
+                                           tr_vals], axis=1),
+                        "kld": np.stack([tr_vals[r].kld_curve for r in tr_vals],
+                                        axis=1)}
+            stacked = ms.stack_trees([tr_vals[r].params for r in tr_vals])
+            trainers.update((n, t.detach().double().cpu().numpy())
+                            for n, t in named_leaves(stacked))
+            # eval_multiseed on the trained battery: 2 forward, 0 backward
+            R.LAUNCHES = R.BWD_LAUNCHES = 0
+            m = ms.eval_multiseed(cell64.spec, out64, cell64.X_test,
+                                  cell64.Y_test, cell64.Y_std, device=dev)
+            ev_calls = (R.LAUNCHES, R.BWD_LAUNCHES)
+        finally:
+            cfg.set_precision("fp32")
+        add(ev_calls)
+        checks.append((ev_calls == (2, 0), f"eval_multiseed: {ev_calls}"))
+        checks.append((all(np.isfinite(v).all() for v in m.values()),
+                       "eval_multiseed: finite"))
+        log(f"flagship battery fp64, {BAT_EARLY} epochs: test NLL per seed "
+            f"{np.round(-m['logL'][:, 0], 4).tolist()}; eval kernel calls "
+            f"{ev_calls}")
+        stage("the card's flagship runs")
+
+        # (iv) the battery CLI
+        cli = {}
+        runs_cli = [("SVGP", "boston", 100, BAT_EPOCHS, (), BAT_SEEDS, None),
+                    ("TGP", "boston", 100, BAT_EPOCHS, ("--arch", "SAL_BCL:1"),
+                     BAT_SEEDS, None),
+                    ("ID_TGP", "boston", 100, BAT_EPOCHS, (), "1-2",
+                     ReplicaCpuDraws(11)),
+                    ("DGP", "boston", 100, BAT_EPOCHS, (), BAT_SEEDS,
+                     ReplicaCpuDraws(12)),
+                    ("SVGP", "power", 100, BAT_EPOCHS, ("--natgrad", "1.0"),
+                     BAT_SEEDS, None),
+                    ("SVGP", "boston", 100, BAT_MB_EPOCHS, ("--batch_size", "200"),
+                     BAT_SEEDS, None)]
+        for model, ds, M, ep, extra, seeds, draws in runs_cli:
+            res, sm = battery_cli(dev, model, ds, M, ep, extra, seeds, draws)
+            add(sm["counts"])
+            leaves = 2 if model == "DGP" else 1
+            steps = ep * (3 if "--batch_size" in extra else 1)   # 455 = 2x200+55
+            want = {"train": (leaves * steps, leaves * steps)}
+            want.update((k, (2, 0)) for k in res.kernel_calls if k != "train")
+            checks.append((sm["kernel_calls"] == want and sm["finite"]
+                           and sm["counts"] == tuple(map(sum, zip(
+                               *sm["kernel_calls"].values()))),
+                           f"{sm['tag']}: calls {sm['kernel_calls']}, counts "
+                           f"{sm['counts']}, finite {sm['finite']}"))
+            cli[sm["tag"]] = dict(sm, lines=[ln for _, _, lines, _ in res.reports
+                                             for ln in lines if ln.strip()])
+        result["cli"] = cli
+        stage("the battery CLI")
+
+        # (v) checkpoint resume, bitwise
+        ck_dir = HERE / "build" / "battery_ckpt"
+        shutil.rmtree(ck_dir, ignore_errors=True)
+        ck_dir.mkdir(parents=True)
+        base = ["--ckpt_each", str(BAT_CKPT_EPOCHS // 2), "--batch_size", "256"]
+        stopped = 0
+        try:
+            battery_cli(dev, "SVGP", "boston", 100, BAT_CKPT_EPOCHS,
+                        (*base, "--ckpt", str(ck_dir / "a.pt"),
+                         "--ckpt_stop_after", "1"), "1-3")
+        except SystemExit as e:
+            stopped = e.code
+        resumed = battery_cli(dev, "SVGP", "boston", 100, BAT_CKPT_EPOCHS,
+                              (*base, "--ckpt", str(ck_dir / "a.pt")), "1-3")[0]
+        straight = battery_cli(dev, "SVGP", "boston", 100, BAT_CKPT_EPOCHS,
+                               (*base, "--ckpt", str(ck_dir / "b.pt")), "1-3")[0]
+        shutil.rmtree(ck_dir, ignore_errors=True)
+        same = (all(torch.equal(a, b) for a, b in zip(tree_leaves(resumed.params),
+                                                     tree_leaves(straight.params)))
+                and np.array_equal(resumed.curves["elbo"], straight.curves["elbo"])
+                and all(np.array_equal(a, b) for a, b in zip(
+                    resumed.reports[0][1].values(), straight.reports[0][1].values())))
+        log(f"battery --ckpt: stopped with exit {stopped} after one segment, "
+            f"resumed; bitwise the uninterrupted run: {same}")
+        checks.append((stopped == 75 and same, "battery checkpoint resume differs"))
+        result["ckpt_bitwise"] = same
+        stage("checkpoint resume")
+
+        summ.update({k: f.result() for k, f in cpu.items()})
+    stage("the CPU's flagship runs")
+    for k, sm in summ.items():
+        checks.append((all(np.isfinite(v).all() for v in sm["values"].values()),
+                       f"flagship battery {k}: finite"))
+        if sm["device"] == "cuda":
+            add(sm["counts"])
+            checks.append((sm["counts"] == (BAT_EARLY, BAT_EARLY),
+                           f"flagship battery {k}: counts {sm['counts']}"))
+    vals = {k: sm["values"] for k, sm in summ.items()}
+    vals["trainers"] = trainers
+    gaps = {"f64": held_gaps(vals, {"gpu64_vs_cpu64": ("gpu64", "cpu64")},
+                             exp_group, BAT_F64_LIMITS,
+                             f"flagship battery {BAT_EARLY} epochs", checks,
+                             logged=() if BAT_F64_LIMITS else
+                             ("gpu64_vs_cpu64",)),
+            "trainers": held_gaps(vals, {"battery_vs_trainers": ("gpu64",
+                                                                 "trainers")},
+                                  exp_group, BAT_TRAINER_LIMITS,
+                                  f"flagship battery {BAT_EARLY} epochs, "
+                                  "against Trainer(seed=r) on the card", checks,
+                                  logged=() if BAT_TRAINER_LIMITS else
+                                  ("battery_vs_trainers",))}
+    c64 = vals["cpu64"]["curve"]
+    to64 = {r: float(np.abs(vals[r]["curve"] - c64).max() / np.abs(c64).max())
+            for r in ("gpu32", "cpu32")}
+    log(f"flagship battery fp32, the curves' gap to the CPU's fp64 over "
+        f"{BAT_EARLY} epochs: card {to64['gpu32']:.3e}, CPU {to64['cpu32']:.3e}")
+    checks.append((to64["gpu32"] <= max(4 * to64["cpu32"], 1e-5),
+                   f"flagship battery fp32: the card's curves {to64['gpu32']} "
+                   f"from fp64, the CPU's {to64['cpu32']}"))
+    result.update(gaps=gaps, fp32_to_fp64=to64)
+
+    # (iii) the step at R=1 and R=10
+    cell32 = runs["32"][0]
+    timing = {}
+    for Rn in (1, 10):
+        sub = ms.unstack_tree(cell32.params, slice(0, Rn))
+        timing[f"flagship R={Rn}"] = battery_timing(
+            cell32.spec, sub, cell32.X[:Rn], cell32.Y[:Rn],
+            f"flagship battery R={Rn} fp32")
+    id_spec, id_params, idX, idY = id_cell(dev, BAT_SEEDS)
+    dgp = B.prepare(battery_args("DGP", "boston", 100, 1, "fp32", "gpu"), dev)
+    for Rn in (1, 10):
+        timing[f"ID_TGP R={Rn}"] = battery_timing(
+            id_spec, ms.unstack_tree(id_params, slice(0, Rn)), idX[:Rn],
+            idY[:Rn], f"ID_TGP boston battery R={Rn} fp32", steps=20)
+        timing[f"DGP-2 R={Rn}"] = battery_timing(
+            dgp.spec, ms.unstack_tree(dgp.params, slice(0, Rn)), dgp.X[:Rn],
+            dgp.Y[:Rn], f"DGP-2 boston battery R={Rn} fp32", steps=20)
+    for k, t in timing.items():
+        leaves = 2 if k.startswith("DGP") else 1
+        add(t["counts"])
+        checks.append((t["counts"] == (leaves * t["steps"], leaves * t["steps"]),
+                       f"{k}: counts {t['counts']} in {t['steps']} steps"))
+    result["timing"] = timing
+    stage("the step at R=1 and R=10")
+
+    data.kmeans_centers = kmeans
+    result.update(**counts)
+    for cond, msg in checks:
+        check(cond, msg)
+    return result
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -3213,8 +3738,11 @@ def main() -> int:
     t0 = time.perf_counter()
     deep = deep_natgrad_phase(dev)
     log(f"deep and natgrad phase {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    battery = battery_phase(dev)
+    log(f"battery phase {time.perf_counter() - t0:.1f} s")
     paths = (serving, serving["bayes"], grad, training, experiment, idtgp, wgp,
-             classification, surface, deep)
+             classification, surface, deep, battery)
 
     fp32_rows = [r for r in rows if "fp32" in r["shape"]]
     train = next(r for r in rows if r["shape"] == "pair 8611+100 fp32")
@@ -3243,7 +3771,7 @@ def main() -> int:
         big_gram=big, serving=serving, gradient=grad, training=training,
         experiment=experiment, id_tgp=idtgp, wgp=wgp,
         classification=classification, surface=surface, deep_natgrad=deep,
-        record=record),
+        battery=battery, record=record),
         indent=1,
         default=_jsonable))
 

@@ -864,3 +864,98 @@ def test_natgrad_warmup_split_is_bitwise_on_the_card(dev):
     assert np.array_equal(np.asarray(a.loss_curve), np.asarray(b.loss_curve))
     for p, q in zip(weights.tree_leaves(a.params), weights.tree_leaves(b.params)):
         assert torch.equal(p, q)
+
+
+# ---------------------------------------------------------------------------
+# the multi-seed battery: the replica axis folded into the kernels
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("shape", [(1, 455, 100, 13), TRAIN, (2, 131, 77, 3)])
+def test_mapped_pair_is_one_launch_and_the_replicas_own(dev, shape, dtype):
+    """`torch.func.vmap` of `rbf_gram_pair` over R=4 replicas: one forward
+    launch and one backward call, each replica's Grams and gradients those
+    of its own kernel calls (and of the plain version) at the kernel
+    tolerances, and two backward runs bitwise equal."""
+    Rn = 4
+    parts = [_inputs(dev, shape, dtype, seed=r) for r in range(Rn)]
+    X, Z, ks = (torch.stack(ts) for ts in zip(*parts))
+    g = torch.Generator(device=dev).manual_seed(9)
+    Dy, N, M, _ = shape
+    gs = [torch.randn(Rn, Dy, n, M, generator=g, device=dev, dtype=dtype)
+          for n in (N, M)]
+
+    def mapped():
+        leaves = [t.clone().requires_grad_(True) for t in (X, Z, ks)]
+        Ks = torch.func.vmap(R.rbf_gram_pair)(*leaves)
+        return Ks, torch.autograd.grad(Ks, leaves, gs)
+
+    before = (R.LAUNCHES, R.BWD_LAUNCHES)
+    Ks, grads = mapped()
+    assert (R.LAUNCHES - before[0], R.BWD_LAUNCHES - before[1]) == (1, 1)
+    again = mapped()[1]
+    for a, b in zip(grads, again):
+        assert torch.equal(a, b)
+    tol = 2e-5 if dtype == torch.float32 else 1e-12
+    gtol = 1e-4 if dtype == torch.float32 else 1e-10
+    for r in range(Rn):
+        leaves = [t[r].clone().requires_grad_(True) for t in (X, Z, ks)]
+        own = R.rbf_gram_pair(*leaves)
+        own_grads = torch.autograd.grad(own, leaves, [g_[r] for g_ in gs])
+        plain = R.rbf_gram_pair_reference(X[r], Z[r], ks[r])
+        for k, o, p in zip(Ks, own, plain):
+            _close(k[r].detach(), o.detach(), tol)
+            _close(k[r].detach(), p, tol)
+        for a, b in zip(grads, own_grads):
+            _close_scaled(a[r], b, gtol)
+
+
+def test_battery_on_the_card_matches_the_cpu(dev):
+    """A 3-replica `train_multiseed` (TGP, SAL(1), 60 rows, M=6) for 15
+    steps and `eval_multiseed`, fp64, on the card and on the CPU: the curves,
+    every parameter and the metrics (coverage's draws come from each
+    device's own generators, so it is left out), relative to the largest
+    entry (1e-10); 1 forward launch and 1 backward call a step, 2 forward
+    launches an evaluation."""
+    from tgp.pytorch_tpu_torch.flows import generators as G
+    from tgp.pytorch_tpu_torch.flows.core import spec_from_list
+    from tgp.pytorch_tpu_torch.likelihoods import LikelihoodSpec
+    from tgp.pytorch_tpu_torch.models import tgp as M_
+    from tgp.pytorch_tpu_torch.ops import kernels as K
+    from tgp.pytorch_tpu_torch.train import multiseed as ms
+
+    pcfg.set_precision("fp64")
+    try:
+        rs = np.random.RandomState(4)
+        X = rs.randn(3, 60, 2)
+        Y = np.sinh(X @ rs.randn(3, 2, 1)) + 0.1 * rs.randn(3, 60, 1)
+        np.random.seed(0)
+        fspec, inits = spec_from_list(G.SAL(1))
+        spec = M_.TGPSpec(Dy=1, Dx=2, M=6, N=60.0,
+                          kernel=K.from_name("scale_rbf"), flow=fspec,
+                          likelihood=LikelihoodSpec("gaussian_flow", 1,
+                                                    quad_points=10))
+        stack = ms.stack_trees([weights.perturb_params(M_.init_tgp_params(
+            spec, X[r], X[r][:6].copy(), flow_inits=inits, device="cpu"),
+            seed=r) for r in range(3)])
+        runs = []
+        for device in (dev, "cpu"):
+            before = (R.LAUNCHES, R.BWD_LAUNCHES)
+            out, curves = ms.train_multiseed(spec, stack, X, Y, 15, 0.01,
+                                             device=device)
+            train_calls = (R.LAUNCHES - before[0], R.BWD_LAUNCHES - before[1])
+            m = ms.eval_multiseed(spec, out, X, Y, np.ones((3, 1)), S_test=20,
+                                  device=device)
+            runs.append((out, curves, m, train_calls,
+                         (R.LAUNCHES - before[0] - train_calls[0],
+                          R.BWD_LAUNCHES - before[1] - train_calls[1])))
+    finally:
+        pcfg.set_precision("fp32")
+    (out_g, cv_g, m_g, calls, ev_calls), (out_c, cv_c, m_c, _, _) = runs
+    assert calls == (15, 15) and ev_calls == (2, 0)
+    for k in cv_c:
+        assert _rel(cv_g[k], cv_c[k]) <= 1e-10
+    for a, b in zip(weights.tree_leaves(out_g), weights.tree_leaves(out_c)):
+        assert _rel(a, b) <= 1e-10
+    for k in ("logL", "rmse"):
+        assert _rel(m_g[k], m_c[k]) <= 1e-10

@@ -8,7 +8,8 @@ nor anything of the JAX package.
 
 Ported so far: serving and training (`serve.Predictor`, `train.Trainer`),
 the experiment CLI for SVGP, TGP, ID_TGP and WGP (`experiments.main`) and
-the classification protocol (`experiments.classification_protocol`), over
+the classification protocol (`experiments.classification_protocol`), the
+multi-seed battery (`train.multiseed`, `experiments.battery`), over
 every point-estimate and input-dependent flow, every likelihood (Gaussian,
 warped, Bernoulli, categorical), a scale-RBF ARD kernel and whitened q(U),
 with the fused ARD-RBF Gram and its VJP as hand-written CUDA kernels

@@ -492,26 +492,33 @@ def _step_inverse_analytic(step: FlowStep, params, f):
     raise NotImplementedError(k)
 
 
+def value_and_derivative(fn, x):
+    """(fn(x), dfn/dx) of an elementwise fn, the derivative as the gradient
+    of sum(fn(x)) by `torch.func.grad`, which runs inside a
+    `torch.func.vmap` as well (the battery's map refuses
+    `requires_grad_`).  With grad mode on, both stay differentiable in x
+    and in fn's parameters; under no_grad they come back without history."""
+    def total(y):
+        val = fn(y)
+        return val.sum(), val
+
+    dval, val = torch.func.grad(total, has_aux=True)(x)
+    return val, dval
+
+
 def newton_inverse(fwd, target, init=None, iters: int = 100,
                    clamp: float = 1e-4):
     """Solve fwd(x) = target elementwise by Newton-Raphson: a fixed number
     of iterations, the derivative clamped below at `clamp`.
 
-    `fwd` must be elementwise, so the derivative is the gradient of
-    sum(fwd(x)).  With grad mode on, the iterations stay in the graph (the
-    result is differentiable in fwd's parameters and in target), as the JAX
-    package's `fori_loop` is.
+    `fwd` must be elementwise (`value_and_derivative`).  With grad mode on,
+    the iterations stay in the graph (the result is differentiable in fwd's
+    parameters and in target), as the JAX package's `fori_loop` is.
     """
-    track = torch.is_grad_enabled()
     x = torch.ones_like(target) if init is None else init
     for _ in range(iters):
-        with torch.enable_grad():
-            xi = x if (track and x.requires_grad) else x.detach().requires_grad_(True)
-            val = fwd(xi)
-            dval, = torch.autograd.grad(val.sum(), xi, create_graph=track)
-        x = xi - (val - target) / torch.clamp_min(dval, clamp)
-        if not track:
-            x = x.detach()
+        val, dval = value_and_derivative(fwd, x)
+        x = x - (val - target) / torch.clamp_min(dval, clamp)
     return x
 
 

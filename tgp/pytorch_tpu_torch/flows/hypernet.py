@@ -137,14 +137,64 @@ def _row(v):
     return v if v.ndim == 1 else v.unsqueeze(-2)
 
 
+class ReplicaGenerators:
+    """One `torch.Generator` per replica, for a function that
+    `torch.func.vmap` maps over R replicas (the multi-seed battery), which
+    refuses a generator's draws inside the map.  `bind(token)` ties the
+    generators to a mapped tensor (any tensor that the map batches, one
+    entry a replica); a draw through the bound object is R draws, replica
+    r's from generator r, made outside the map and stacked: replica r gets
+    what a single model drawing from generator r would get."""
+
+    def __init__(self, gens, token=None):
+        self.gens = list(gens)
+        self.token = token
+
+    def bind(self, token) -> "ReplicaGenerators":
+        return ReplicaGenerators(self.gens, token)
+
+
+class _ReplicaDraw(torch.autograd.Function):
+    """fn(generator) for each replica's generator, stacked on the mapped
+    axis; outside a map, fn of the generator that `token` names."""
+
+    @staticmethod
+    def forward(token, rngs, fn):
+        return fn(rngs.gens[int(token)])
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def vmap(info, in_dims, token, rngs, fn):
+        if in_dims[0] is None or info.batch_size != len(rngs.gens):
+            raise ValueError(f"{len(rngs.gens)} replica generators under a "
+                             f"map of {info.batch_size}")
+        return torch.stack([fn(g) for g in rngs.gens]), 0
+
+
+def _generate(fn, generator):
+    """fn(generator), or per replica for `ReplicaGenerators`."""
+    if isinstance(generator, ReplicaGenerators):
+        return _ReplicaDraw.apply(generator.token, generator, fn)
+    return fn(generator)
+
+
 def _draw(kind: str, shape, p, generator: torch.Generator, dtype, device):
     """Every random draw of the hypernets: kind 'keep' a dropout keep-mask,
     True with probability p; kind 'normal' standard-normal VI noise (p is
-    unused)."""
+    unused).  `generator` may be `ReplicaGenerators`."""
     if kind == "keep":
-        return torch.rand(shape, generator=generator, dtype=dtype,
-                          device=device) < p
-    return torch.randn(shape, generator=generator, dtype=dtype, device=device)
+        return _generate(lambda g: torch.rand(
+            shape, generator=g, dtype=dtype, device=device) < p, generator)
+    return randn(shape, generator, dtype, device)
+
+
+def randn(shape, generator, dtype, device):
+    """Standard normals from a `torch.Generator` or `ReplicaGenerators`."""
+    return _generate(lambda g: torch.randn(shape, generator=g, dtype=dtype,
+                                           device=device), generator)
 
 
 def _batch_norm(layer_bn, h, use_batch_stats: bool, eps: float = 1e-5):

@@ -5,15 +5,16 @@ The warp T acts on the observations instead of the process: the expected
 log-likelihood adds the log-Jacobian of T, and the predictive moments are
 quadrature integrals of T^{-1} under the unwarped marginal.  The JAX
 package takes dT/dy with `jax.jvp`; a warp flow is elementwise, so here
-dT/dy is the gradient of sum(T(y)) (as `flows.core.newton_inverse` takes
-its derivative), kept in the graph while grad mode is on.
+dT/dy is the gradient of sum(T(y)) (`flows.core.value_and_derivative`, as
+`flows.core.newton_inverse` takes its derivative), kept in the graph while
+grad mode is on.
 """
 
 from __future__ import annotations
 
 import torch
 
-from ..flows.core import flow_forward, flow_inverse
+from ..flows.core import flow_forward, flow_inverse, value_and_derivative
 from ..ops.quadrature import GaussHermite
 from .gaussian import (
     LikelihoodSpec,
@@ -29,14 +30,8 @@ def _forward_and_grad(flow_spec, flow_params, Y):
     With grad mode on, dT/dy stays differentiable in the warp's parameters
     (a training step differentiates through it again); under no_grad (the
     Trainer's evaluation) both come back detached."""
-    track = torch.is_grad_enabled()
-    with torch.enable_grad():
-        y = Y if (track and Y.requires_grad) else Y.detach().requires_grad_(True)
-        TY = flow_forward(flow_spec, flow_params, y)
-        dT, = torch.autograd.grad(TY.sum(), y, create_graph=track)
-    if not track:
-        TY = TY.detach()
-    return TY, dT
+    return value_and_derivative(
+        lambda y: flow_forward(flow_spec, flow_params, y), Y)
 
 
 def _log_jacobian(dT):

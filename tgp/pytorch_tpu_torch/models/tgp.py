@@ -48,6 +48,7 @@ from ..ops.linalg import (cholesky_solve, einsum_at, kl_gaussian,
                           kl_whitened, safe_cholesky, tril_mask, tril_solve,
                           triu_solve)
 from ..ops.quadrature import GaussHermite
+from ..flows import hypernet
 from ..flows.core import (
     FlowCtx,
     FlowStep,
@@ -681,7 +682,8 @@ def sample_marginal(spec: TGPSpec, params, X, S: int, rng: torch.Generator,
                     fully_bayesian: bool = False, qf=None):
     """S reparameterized samples from the warped marginal q(f_K).
 
-    Draws come from the torch.Generator `rng` (on the tensors' device); with
+    Draws come from the torch.Generator `rng` (on the tensors' device, or
+    `flows.hypernet.ReplicaGenerators` under the battery's map); with
     `fully_bayesian` and a stochastic flow, each sample takes its own
     hypernet draw.  Returns (fk, mu, var, f0): fk, f0 (S, Dy, MB).  A
     `DeepTGPSpec` dispatches to `deep.sample_marginal`.
@@ -691,8 +693,7 @@ def sample_marginal(spec: TGPSpec, params, X, S: int, rng: torch.Generator,
                                     prop=qf)
     X3 = _ensure_3d(spec, X)
     mu, var = qf if qf is not None else marginal_qf(spec, params, X3)
-    eps = torch.randn((S,) + tuple(mu.shape), generator=rng, dtype=mu.dtype,
-                      device=mu.device)
+    eps = hypernet.randn((S,) + tuple(mu.shape), rng, mu.dtype, mu.device)
     f0 = mu[None] + torch.sqrt(var)[None] * eps
     if not spec.has_flow:
         return f0, mu, var, f0
@@ -729,8 +730,8 @@ def sample_predictive(spec: TGPSpec, params, X, S: int, rng: torch.Generator,
         y = y.reshape(S, 1, -1).to(fk.dtype)
     else:
         C_y = noise_variance(lik, lp)                             # (Dy, 1)
-        y = fk + torch.randn(fk.shape, generator=rng, dtype=fk.dtype,
-                             device=fk.device) * torch.sqrt(C_y)[None]
+        y = fk + hypernet.randn(fk.shape, rng, fk.dtype, fk.device) \
+            * torch.sqrt(C_y)[None]
         if lik.kind == "warped":
             y = flow_inverse(lik.warp_flow, lp["warp"], y)
     return y.transpose(0, 1), fk, f0

@@ -7,6 +7,7 @@ XLA.  All functions take arbitrary leading batch dimensions.
 
 from __future__ import annotations
 
+import contextlib
 import math
 
 import torch
@@ -105,11 +106,17 @@ class _MatmulAt(torch.autograd.Function):
     backward: a precision flag set around the forward alone would be gone
     by the time autograd runs the backward."""
 
+    generate_vmap_rule = True
+
     @staticmethod
-    def forward(ctx, a, b, mode):
+    def forward(a, b, mode):
+        return _matmul_in(a, b, mode)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        a, b, mode = inputs
         ctx.save_for_backward(a, b)
         ctx.mode = mode
-        return _matmul_in(a, b, mode)
 
     @staticmethod
     def backward(ctx, g):
@@ -155,10 +162,27 @@ def einsum_at(eq: str, a, b, mode: str = "highest"):
 #: blocks; a column's solve does not depend on the others.
 TRSM_COLUMNS = 1 << 22
 
+#: replicas that `torch.func.vmap` maps the current call over (set by
+#: `mapped_replicas`): a mapped solve's tensors show one replica's columns,
+#: and cuBLAS sees all of them in one call
+_MAPPED = 1
+
+
+@contextlib.contextmanager
+def mapped_replicas(R: int):
+    """A scope in which the solves run under a map over R replicas, so that
+    the column blocking counts every replica's columns."""
+    global _MAPPED
+    prev, _MAPPED = _MAPPED, int(R)
+    try:
+        yield
+    finally:
+        _MAPPED = prev
+
 
 def _solve_triangular(A, B, upper: bool):
     n = B.shape[-1]
-    step = max(1, TRSM_COLUMNS * n // max(B[..., 0, :].numel(), 1))
+    step = max(1, TRSM_COLUMNS * n // max(B[..., 0, :].numel() * _MAPPED, 1))
     if n <= step:
         return torch.linalg.solve_triangular(A, B, upper=upper)
     # the blocks joined as rows of X^T: cuBLAS returns X column-major, so

@@ -21,6 +21,10 @@ Kernels:
     same bits on every run).
 The source notes in the .cu files give the designs.
 
+Under `torch.func.vmap` (the multi-seed battery, `train/multiseed.py`) the
+Functions fold the mapped replica axis into the kernels' output axis: R
+replicas of a (Dy, N, M) Gram are one launch at R*Dy, forward and backward.
+
 Routing: a CUDA tensor always launches the kernels (or raises); a CPU tensor
 takes the plain torch versions, `rbf_gram_reference` forward and autograd
 through it.  `rbf_gram_bwd` (a transcription of `_bwd`) and
@@ -265,33 +269,71 @@ def _launch_bwd(Xs, Zs, ks, g_xz, g_zz=None):
     return dX, dZ, dks
 
 
+def _fold(info, in_dims, *ts):
+    """Under `torch.func.vmap`: each tensor with the mapped axis moved to
+    the front (a tensor the map does not batch is broadcast to it) and
+    folded into the kernel's output axis, (R, Dy, ...) -> (R*Dy, ...)."""
+    R = info.batch_size
+    out = []
+    for t, d in zip(ts, in_dims):
+        t = t.expand((R,) + tuple(t.shape)) if d is None else t.movedim(d, 0)
+        out.append(t.reshape((R * t.shape[1],) + tuple(t.shape[2:]))
+                   .contiguous())
+    return out
+
+
+def _unfold(R, t):
+    """(R*Dy, ...) -> (R, Dy, ...)."""
+    return t.reshape((R, t.shape[0] // R) + tuple(t.shape[1:]))
+
+
 class RBFGram(torch.autograd.Function):
-    """The single Gram: kernel forward, kernel backward (K recomputed)."""
+    """The single Gram: kernel forward, kernel backward (K recomputed).
+    Under `torch.func.vmap` the mapped axis folds into the output axis, so
+    R mapped Grams are one launch forward and one backward call."""
 
     @staticmethod
-    def forward(ctx, X1s, X2s, ks):
-        ctx.save_for_backward(X1s, X2s, ks)
+    def forward(X1s, X2s, ks):
         return _launch(X1s, X2s, ks)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(*inputs)
 
     @staticmethod
     @once_differentiable
     def backward(ctx, g):
         return _launch_bwd(*ctx.saved_tensors, g.contiguous())
 
+    @staticmethod
+    def vmap(info, in_dims, X1s, X2s, ks):
+        K = RBFGram.apply(*_fold(info, in_dims, X1s, X2s, ks))
+        return _unfold(info.batch_size, K), 0
+
 
 class RBFGramPair(torch.autograd.Function):
-    """(K(X, Z), K(Z, Z)): one forward launch, one backward kernel call."""
+    """(K(X, Z), K(Z, Z)): one forward launch, one backward kernel call,
+    for R mapped pairs under `torch.func.vmap` too (`RBFGram`'s fold)."""
 
     @staticmethod
-    def forward(ctx, Xs, Zs, ks):
-        ctx.save_for_backward(Xs, Zs, ks)
+    def forward(Xs, Zs, ks):
         return _launch_pair(Xs, Zs, ks, pair=True)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(*inputs)
 
     @staticmethod
     @once_differentiable
     def backward(ctx, g_xz, g_zz):
         return _launch_bwd(*ctx.saved_tensors, g_xz.contiguous(),
                            g_zz.contiguous())
+
+    @staticmethod
+    def vmap(info, in_dims, Xs, Zs, ks):
+        Kxz, Kzz = RBFGramPair.apply(*_fold(info, in_dims, Xs, Zs, ks))
+        R = info.batch_size
+        return (_unfold(R, Kxz), _unfold(R, Kzz)), (0, 0)
 
 
 def _on_cpu(*ts) -> bool:

@@ -30,13 +30,17 @@ class _SafeSinh(torch.autograd.Function):
     backward pass (0*inf = NaN would poison the whole gradient).
     """
 
+    generate_vmap_rule = True
+
     @staticmethod
-    def forward(ctx, x):
+    def forward(x):
         lim = _sinh_lim(x.dtype)
         e = torch.exp(torch.clamp(x, -lim, lim))
-        y = 0.5 * (e - 1.0 / e)
-        ctx.save_for_backward(x, y)
-        return y
+        return 0.5 * (e - 1.0 / e)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(inputs[0], output)
 
     @staticmethod
     def backward(ctx, g):
@@ -62,9 +66,18 @@ class _LogNdtr(torch.autograd.Function):
     = NaN."""
 
     @staticmethod
-    def forward(ctx, x):
-        ctx.save_for_backward(x)
+    def forward(x):
         return torch.special.log_ndtr(x)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(inputs[0])
+
+    @staticmethod
+    def vmap(info, in_dims, x):
+        # elementwise on the mapped tensor as it lies (torch.func has no
+        # batching rule for log_ndtr)
+        return _LogNdtr.apply(x), in_dims[0]
 
     @staticmethod
     def backward(ctx, g):

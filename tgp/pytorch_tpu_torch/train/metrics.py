@@ -1,7 +1,7 @@
 """Evaluation metrics of the JAX package's `train/metrics.py`: the
 regression metrics `coverage_95` and `rmse` on tensors, and the
-classification calibration metrics (ECE, MCE, Brier, NLL) on host arrays.
-`replica_outliers` waits for the seed battery (ROADMAP Queue 1 item 19).
+classification calibration metrics (ECE, MCE, Brier, NLL) on host arrays,
+and the seed battery's `replica_outliers`.
 """
 
 from __future__ import annotations
@@ -61,13 +61,27 @@ def calibration_measures(probs, labels, bins: int = 15):
         calibration_accumulators(probs, labels, bins), bins)
 
 
+def quantile(x, q: float, dim: int):
+    """The q-quantile of x along `dim` with numpy's default linear
+    interpolation, NaN where the slice holds a NaN: `torch.quantile`'s
+    values bit for bit (its rank and weight in x's dtype, a sort, then
+    `torch.lerp` between the neighbouring order statistics), from ops that
+    `torch.func.vmap` batches (it has no batching rule for quantile)."""
+    dt = np.float64 if x.dtype == torch.float64 else np.float32
+    n = x.shape[dim]
+    rank = dt(q) * dt(n - 1)
+    lo = int(rank)
+    w = torch.tensor(float(rank - dt(lo)), dtype=x.dtype, device=x.device)
+    xs = torch.sort(x, dim=dim).values
+    out = torch.lerp(xs.select(dim, lo), xs.select(dim, min(lo + 1, n - 1)), w)
+    return torch.where(torch.isnan(x).any(dim), torch.nan, out)
+
+
 def inside_95(samples, Y, dim: int = 0):
     """Whether each Y lies inside the [2.5%, 97.5%] quantiles of `samples`
-    along `dim`, computed on the samples' device (`torch.quantile`, with
-    numpy's default linear interpolation)."""
-    q = torch.tensor([0.025, 0.975], dtype=samples.dtype, device=samples.device)
-    lo, hi = torch.quantile(samples, q, dim=dim)
-    return (Y >= lo) & (Y <= hi)
+    along `dim`, computed on the samples' device."""
+    return ((Y >= quantile(samples, 0.025, dim))
+            & (Y <= quantile(samples, 0.975, dim)))
 
 
 def coverage_95(samples, Y):
@@ -78,3 +92,23 @@ def coverage_95(samples, Y):
 
 def rmse(pred_mean, Y, Y_std=1.0):
     return float(Y_std * torch.sqrt(torch.mean(torch.square(pred_mean - Y))))
+
+
+def replica_outliers(values, z_thresh: float = 5.0, min_population: int = 5):
+    """Cross-replica outliers of a battery by robust (median/MAD) z-score
+    (JAX `train/metrics.py:83-110`).
+
+    A discrete bad basin (the naval SAL_InvBCL study of the JAX package:
+    trains as well as the healthy mode, sits ~11 healthy MADs away on test
+    NLL) shows in the spread over the replicas.  values is (R,), any
+    metric (the cut is two-sided); below `min_population` replicas, or at a
+    MAD of exactly 0, nothing is flagged.
+
+    Returns dict(flags=bool (R,), z=float (R,), median, mad).
+    """
+    v = np.asarray(values, dtype=np.float64)
+    med = float(np.median(v))
+    mad = float(np.median(np.abs(v - med)))
+    z = np.zeros_like(v) if mad == 0.0 else (v - med) / mad
+    flags = (np.abs(z) > z_thresh) & (mad > 0.0) & (v.size >= min_population)
+    return {"flags": flags, "z": z, "median": med, "mad": mad}

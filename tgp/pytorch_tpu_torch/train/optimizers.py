@@ -43,9 +43,8 @@ def make_optimizer(opt: str, lr: float, weight_decay: float = 0.0):
                                   "item 19)")
     if opt in ("adam", "adam_W", "adam_R"):
         raise NotImplementedError(
-            f"{opt!r} is train/group_adam.py in the port; a single-group "
-            "optimizer of the Adam family serves only train/multiseed.py, "
-            "which is not ported yet (ROADMAP Queue 1 item 19)")
+            f"{opt!r} is train/group_adam.py in the port, for the Trainer "
+            "and train/multiseed.py alike")
     if opt != "sgd":
         raise NotImplementedError(f"optimizer {opt!r}")
 

@@ -3,7 +3,9 @@
   * `params_from_jax` turns a JAX-package parameter tree, given as numpy
     arrays, into the port's params: the layout is the same dict/list tree
     (an input-dependent step's nets as `net_*/layers/[i]/{W, b, bn, ...}`),
-    so this is a leaf-wise conversion.  `params_to_numpy` is its inverse.
+    so this is a leaf-wise conversion, and a replica-stacked tree (the JAX
+    package's `train/multiseed.stack_trees`) carries across as one stack.
+    `params_to_numpy` is its inverse.
   * `spec_from_dict` (`models/serialization.py`) builds the port's
     `TGPSpec` or `DeepTGPSpec` from the dict that the JAX package's
     `models/serialization.py::spec_to_dict` emits, hypernet specs included.
