@@ -110,6 +110,18 @@ Phases, each of which fails the run (non-zero exit) on any error:
      and R=10 (flagship, boston ID_TGP and DGP-2).  1 forward launch and 1
      backward call a battery step whatever R (2 and 2 for DGP-2), 2 and 0
      an `eval_multiseed` call.
+ 13. L-BFGS and a run's runtime: `Trainer(opt="lbfgs")` on the flagship
+     for 20 iterations, fp64 on the card against the CPU (held leaf by
+     leaf, beside the CPU's run from a start moved by 1e-15), fp32 on both
+     (finite, the gaps to fp64 logged), 1 forward launch and 1 backward
+     call an evaluation (an iteration's start and each line-search trial,
+     counted by the line search's host reads), the time an iteration, a
+     profile and a Chrome trace (`utils.profiling.trace`); a flagship
+     Trainer resumed from a checkpoint bitwise the uninterrupted one (fp32
+     and fp64), the save and the restore timed; `eval_device="cpu"`
+     against the card's metrics (fp64, 1e-10); the CLI with
+     `--checkpoint_dir` and one sweep cell (`experiments.sweep`), boston
+     SVGP at M=100.
 The line before the last holds the kernels' JSON record, the last line
 `{"ok": true, "device": {...}}`.  Details go to chiprun_out/chip_smoke.json.
 """
@@ -3693,6 +3705,380 @@ def battery_phase(dev):
     return result
 
 
+# ---------------------------------------------------------------------------
+# phase 13: L-BFGS and a run's runtime
+# ---------------------------------------------------------------------------
+
+LB_ITERS = 20             # L-BFGS iterations on the flagship
+RESUME_STEPS = 20         # Adam steps before and after the checkpoint
+RT_EPOCHS = 20            # the CLI's epochs with --checkpoint_dir
+SWEEP_EPOCHS = 200        # the sweep cell's epochs
+# The flagship's fp64 L-BFGS run on the card against the CPU's after
+# LB_ITERS iterations, relative to the largest entry of each group in the
+# CPU's run: 10x the gaps first measured (NVIDIA H100 80GB HBM3, 700 W),
+# where the CPU's run from a start moved by 1e-15 sat 1.4e-13
+# (curve) to 1.2e-11 (q_L) from the unmoved one: the solver amplifies
+# rounding (both devices made the same 21 line-search trials).
+LB_F64_LIMITS = {"gpu64_vs_cpu64": {
+    "curve": 8.1e-12, "kld": 2.4e-11, "Z": 1.2e-10, "flow": 2.5e-11,
+    "kernel/child/raw_lengthscale": 5.7e-11,
+    "kernel/raw_outputscale": 7.0e-13, "likelihood/log_var_noise": 1.1e-10,
+    "q_L": 9.3e-10, "q_mu": 1.7e-10}}
+# compute_metrics with eval_device="cpu" against the card's, fp64, relative
+EVAL_CPU_LIMIT = 1e-10
+
+
+def lbfgs_run(device, precision, iters, move=0.0):
+    """`bench.flagship_trainer` trained by L-BFGS for `iters` iterations
+    (one train() call), every initial parameter scaled by (1 + move): its
+    curves and parameters (fp64 on the host), the kernels' counts and the
+    line search's host reads from 0, and the run's wall time."""
+    from tgp.pytorch_tpu_torch import bench, config as cfg
+    from tgp.pytorch_tpu_torch.ops import rbf_gram as R
+    from tgp.pytorch_tpu_torch.train import lbfgs as LB
+    from tgp.pytorch_tpu_torch.utils import step_timer
+
+    cfg.set_precision(precision)
+    try:
+        tr = bench.flagship_trainer(device)
+        with torch.no_grad():
+            for _, t in named_leaves(tr.params):
+                t.mul_(1 + move)
+        timed = step_timer(lambda: tr.train(iters, 0.0, "lbfgs",
+                                            verbose_each=0))
+        # --- the main path: counts from 0, 1 forward + 1 backward an
+        # evaluation (an iteration's start and each line-search trial)
+        R.LAUNCHES = R.BWD_LAUNCHES = LB.HOST_READS = 0
+        timed()
+        counts, reads = (R.LAUNCHES, R.BWD_LAUNCHES), LB.HOST_READS
+        # ---------------------------------------------------------------
+    finally:
+        cfg.set_precision("fp32")
+    values = {n: np.asarray(c, np.float64) for n, c in
+              (("curve", tr.loss_curve), ("kld", tr.kld_curve))}
+    values.update((n, t.detach().double().cpu().numpy())
+                  for n, t in named_leaves(tr.params))
+    return dict(values=values, counts=counts, reads=reads, iters=iters,
+                wall_s=timed.times[0], device=tr.device.type,
+                stepsize=float(tr._opt_state_carry.linesearch.learning_rate))
+
+
+def _lbfgs_job(*a, **kw):
+    torch.set_num_threads(3)
+    return lbfgs_run(*a, **kw)
+
+
+def resume_check(dev, precision, ck_dir, checks, counts):
+    """The flagship on the card: RESUME_STEPS Adam steps twice on one
+    Trainer, against RESUME_STEPS, save, restore into a fresh Trainer and
+    RESUME_STEPS more: the same bits (parameters, curve, generator); the
+    save's and the restore's wall times.  Returns the restored Trainer."""
+    from tgp.pytorch_tpu_torch import bench, config as cfg
+    from tgp.pytorch_tpu_torch.ops import rbf_gram as R
+    from tgp.pytorch_tpu_torch.train.checkpoint import (
+        wait_for_checkpoints)
+    from tgp.pytorch_tpu_torch.weights import tree_leaves
+
+    n = RESUME_STEPS
+    cfg.set_precision(precision)
+    try:
+        R.LAUNCHES = R.BWD_LAUNCHES = 0
+        a = bench.flagship_trainer(dev)
+        a.train(n, bench.LR, "adam", verbose_each=0)
+        a.train(n, bench.LR, "adam", verbose_each=0)
+        b = bench.flagship_trainer(dev)
+        b.train(n, bench.LR, "adam", verbose_each=0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        b.save(str(ck_dir))
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        b.save(str(ck_dir), step=10 ** 6, async_save=True)
+        async_s = time.perf_counter() - t0
+        wait_for_checkpoints()
+        c = bench.flagship_trainer(dev)
+        t0 = time.perf_counter()
+        step = c.restore(str(ck_dir), step=n)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        c.train(n, bench.LR, "adam", verbose_each=0)
+        got = (R.LAUNCHES, R.BWD_LAUNCHES)
+    finally:
+        cfg.set_precision("fp32")
+    counts["launches"] += got[0]
+    counts["bwd_launches"] += got[1]
+    checks.append((got == (4 * n, 4 * n),
+                   f"resume {precision}: counts {got} in {4 * n} steps"))
+    same = (all(torch.equal(p, q) for p, q in zip(tree_leaves(a.params),
+                                                 tree_leaves(c.params)))
+            and np.array_equal(np.asarray(a.loss_curve[n:]),
+                               np.asarray(c.loss_curve))
+            and torch.equal(a._gen.get_state(), c._gen.get_state()))
+    gap = max(float((p - q).detach().abs().max()
+                    / (q.detach().abs().max() or 1.0))
+              for p, q in zip(tree_leaves(a.params), tree_leaves(c.params)))
+    nbytes = sum(t.numel() * t.element_size() for t in tree_leaves(c.params))
+    log(f"resume {precision}: {n} + {n} Adam steps against {n}, save "
+        f"({save_s * 1e3:.2f} ms; async {async_s * 1e3:.2f} ms to return), "
+        f"restore ({restore_s * 1e3:.2f} ms), {n}: bitwise {same} (largest "
+        f"leaf gap {gap:.3e}); step {step}, {nbytes} parameter bytes, "
+        f"checkpoint file {(ck_dir / f'step_{n}').stat().st_size} bytes")
+    checks.append((same and step == n and c.params["Z"].is_cuda,
+                   f"resume {precision}: not bitwise (leaf gap {gap})"))
+    return c, dict(bitwise=same, leaf_gap=gap, save_ms=save_s * 1e3,
+                   async_save_ms=async_s * 1e3, restore_ms=restore_s * 1e3)
+
+
+def runtime_phase(dev):
+    """L-BFGS and a run's runtime on the card:
+      (i) L-BFGS on the flagship (power split 1, SAL(2), M=100) for
+          LB_ITERS iterations: fp64 on the card against the CPU, held leaf
+          by leaf (beside the CPU's run from a start moved by 1e-15); fp32
+          on the card and the CPU, finite, their gaps to fp64 logged;
+          1 forward launch and 1 backward call an evaluation, the
+          evaluations (iterations + trials) counted by the line search's
+          host reads; the wall time an iteration, a profile, a Chrome trace
+          by `utils.profiling.trace`;
+     (ii) resume: Adam 20 + 20 against 20, save, restore into a fresh card
+          Trainer, 20: bitwise, fp32 and fp64; the save and the restore;
+    (iii) `eval_device="cpu"` against the card's `compute_metrics` (fp64,
+          the same generator state), no launch on the host path;
+     (iv) the CLI with `--checkpoint_dir` (boston SVGP, M=100, 20 epochs);
+      (v) one sweep cell (`experiments.sweep`, boston SVGP, M=100, fp32)."""
+    import contextlib
+    import io
+    import multiprocessing
+    import shutil
+    from concurrent.futures import ProcessPoolExecutor
+
+    from tgp.pytorch_tpu_torch import config as cfg
+    from tgp.pytorch_tpu_torch.experiments import main as pmain, sweep
+    from tgp.pytorch_tpu_torch.ops import rbf_gram as R
+    from tgp.pytorch_tpu_torch.train import checkpoint as C
+    from tgp.pytorch_tpu_torch.train import lbfgs as LB
+    from tgp.pytorch_tpu_torch.utils import trace
+    from tgp.pytorch_tpu_torch.weights import tree_leaves
+
+    result, checks = {}, []
+    counts = {"launches": 0, "bwd_launches": 0}
+    t0 = time.perf_counter()
+
+    def stage(name):
+        log(f"phase 13: {name} done at {time.perf_counter() - t0:.1f} s")
+
+    # (i) L-BFGS on the flagship
+    with ProcessPoolExecutor(
+            max_workers=2, mp_context=multiprocessing.get_context("spawn")) as pool:
+        n = LB_ITERS
+        cpu = {"cpu64": pool.submit(_lbfgs_job, "cpu", "fp64", n),
+               "cpu32": pool.submit(_lbfgs_job, "cpu", "fp32", n)}
+        runs = {"gpu64": lbfgs_run(dev, "fp64", n),
+                "gpu32": lbfgs_run(dev, "fp32", n)}
+        cpu["cpu64_moved"] = pool.submit(_lbfgs_job, "cpu", "fp64", n,
+                                         move=ULP_REL)
+        runs.update({k: f.result() for k, f in cpu.items()})
+    # timed alone: the CPU's runs above share the host that dispatches
+    runs["gpu32_warm"] = lbfgs_run(dev, "fp32", n)
+    stage("the flagship's L-BFGS runs")
+    for k, r in runs.items():
+        evals = r["reads"]
+        trials = evals - r["iters"]
+        log(f"L-BFGS {k}: {r['iters']} iterations, {trials} line-search "
+            f"trials ({trials / r['iters']:.2f} an iteration), {evals} host "
+            f"reads, kernel counts {r['counts']}, "
+            f"{r['wall_s'] * 1e3 / r['iters']:.3f} ms an iteration, last stepsize {r['stepsize']:.6g}, ELBO "
+            f"{r['values']['curve'][0]:.6f} -> {r['values']['curve'][-1]:.6f}")
+        checks.append((all(np.isfinite(v).all() for v in r["values"].values()),
+                       f"L-BFGS {k}: finite"))
+        if r["device"] == "cuda":
+            counts["launches"] += r["counts"][0]
+            counts["bwd_launches"] += r["counts"][1]
+            checks.append((r["counts"] == (evals, evals)
+                           and trials >= r["iters"],
+                           f"L-BFGS {k}: counts {r['counts']} against {evals} "
+                           f"evaluations (iterations + trials)"))
+    checks.append((runs["gpu64"]["reads"] == runs["cpu64"]["reads"],
+                   "L-BFGS fp64: the card's line search made other trials "
+                   "than the CPU's"))
+    vals = {k: r["values"] for k, r in runs.items()}
+    gaps = held_gaps(vals, {"gpu64_vs_cpu64": ("gpu64", "cpu64"),
+                            "cpu64_moved_vs_cpu64": ("cpu64_moved", "cpu64")},
+                     exp_group, LB_F64_LIMITS,
+                     f"L-BFGS flagship fp64 {LB_ITERS} iterations", checks,
+                     logged=("cpu64_moved_vs_cpu64",))
+    course = curve_course(vals, ("gpu64", "cpu64_moved", "gpu32", "cpu32"),
+                          "L-BFGS flagship")
+    c64 = vals["cpu64"]["curve"]
+    to64 = {r: float(np.abs(vals[r]["curve"] - c64).max() / np.abs(c64).max())
+            for r in ("gpu32", "cpu32")}
+    log(f"L-BFGS flagship fp32, the curves' gap to the CPU's fp64: card "
+        f"{to64['gpu32']:.3e}, CPU {to64['cpu32']:.3e}")
+    warm = runs["gpu32_warm"]
+    iter_ms = warm["wall_s"] * 1e3 / warm["iters"]
+    evals_per_iter = warm["reads"] / warm["iters"]
+    result["lbfgs"] = dict(
+        gaps=gaps, course=course, fp32_to_fp64=to64, iter_ms=iter_ms,
+        evals_per_iter=evals_per_iter,
+        runs={k: {kk: vv for kk, vv in r.items() if kk != "values"}
+              for k, r in runs.items()})
+    # a profile of 5 iterations (one phase) and a Chrome trace of 3
+    from tgp.pytorch_tpu_torch import bench
+    tr = bench.flagship_trainer(dev)
+    reads = []
+
+    def five():
+        r0 = LB.HOST_READS
+        tr.train(5, 0.0, "lbfgs", verbose_each=0)
+        reads.append(LB.HOST_READS - r0)
+
+    R.LAUNCHES = R.BWD_LAUNCHES = LB.HOST_READS = 0
+    prof = profile_device(five)              # a warm-up call, then profiled
+    counts["launches"] += R.LAUNCHES
+    counts["bwd_launches"] += R.BWD_LAUNCHES
+    checks.append(((R.LAUNCHES, R.BWD_LAUNCHES) == (sum(reads), sum(reads)),
+                   f"L-BFGS profile: counts {(R.LAUNCHES, R.BWD_LAUNCHES)}, "
+                   f"{reads} evaluations"))
+    per_eval = {k: prof[k] / reads[-1] for k in ("device_ops",
+                                                 "device_busy_ms")}
+    log(f"L-BFGS flagship fp32 iteration {iter_ms:.3f} ms ({evals_per_iter:.2f}"
+        f" evaluations an iteration, {iter_ms / evals_per_iter:.3f} ms an "
+        f"evaluation); profiled: {per_eval['device_ops']:.1f} device ops and "
+        f"{per_eval['device_busy_ms']:.3f} ms busy an evaluation")
+    for name, ms in prof["top_ms"]:
+        log(f"    {ms * 1e3:9.2f} us in 5 iterations  {name}")
+    tdir = HERE / "build" / "lbfgs_trace"
+    shutil.rmtree(tdir, ignore_errors=True)
+    R.LAUNCHES = R.BWD_LAUNCHES = LB.HOST_READS = 0
+    with trace(str(tdir)):
+        tr.train(3, 0.0, "lbfgs", verbose_each=0)
+    counts["launches"] += R.LAUNCHES
+    counts["bwd_launches"] += R.BWD_LAUNCHES
+    events = json.loads((tdir / "trace.json").read_text())["traceEvents"]
+    in_trace = sum("rbf_gram_kernel" in e.get("name", "") for e in events)
+    log(f"utils.profiling.trace: {len(events)} events in trace.json, "
+        f"{in_trace} of them the Gram forward kernel ({R.LAUNCHES} launches)")
+    # the profiler may drop an event (a run on an H100 traced 14 of 15
+    # launches); the counter, not the trace, holds the launches
+    checks.append((0 < in_trace <= R.LAUNCHES == LB.HOST_READS,
+                   f"trace: {in_trace} Gram kernels traced, {R.LAUNCHES} "
+                   f"launched, {LB.HOST_READS} evaluations"))
+    result["lbfgs"].update(profile_per_eval=per_eval,
+                           profile_top_ms=prof["top_ms"],
+                           trace_events=len(events))
+    stage("the L-BFGS profile and trace")
+
+    # (ii) resume, (iii) eval_device
+    ck_dir = HERE / "build" / "runtime_ckpt"
+    shutil.rmtree(ck_dir, ignore_errors=True)
+    result["resume"] = {}
+    for prec in ("fp32", "fp64"):
+        tr, result["resume"][prec] = resume_check(dev, prec, ck_dir / prec,
+                                                  checks, counts)
+    stage("resume")
+    from tgp.pytorch_tpu_torch import bench
+    cfg.set_precision("fp64")
+    try:
+        tr.save(str(ck_dir / "eval"))
+        host = bench.flagship_trainer(dev)
+        host.restore(str(ck_dir / "eval"))
+        host.eval_device = "cpu"
+        R.LAUNCHES = R.BWD_LAUNCHES = 0
+        t1 = time.perf_counter()
+        m_card = tr.compute_metrics()
+        card_s = time.perf_counter() - t1
+        card_counts = (R.LAUNCHES, R.BWD_LAUNCHES)
+        t1 = time.perf_counter()
+        m_host = host.compute_metrics()
+        host_s = time.perf_counter() - t1
+        host_counts = (R.LAUNCHES, R.BWD_LAUNCHES)
+    finally:
+        cfg.set_precision("fp32")
+    counts["launches"] += host_counts[0]
+    counts["bwd_launches"] += host_counts[1]
+    checks.append((card_counts == (4, 0) and host_counts == card_counts,
+                   f"eval_device: card {card_counts}, then {host_counts}"))
+    ev = {}
+    for split in ("train", "test"):
+        n_rows = len(tr.test_loader.dataset if split == "test"
+                     else tr.train_loader.dataset)
+        for k in ("logL", "rmse", "coverage"):
+            a, b = float(m_host[split][k][0]), float(m_card[split][k][0])
+            ev[f"{split}/{k}"] = g = abs(a - b) / abs(b)
+            lim = 1.0 / n_rows / abs(b) if k == "coverage" else EVAL_CPU_LIMIT
+            log(f"eval_device cpu {split:5s} {k:8s} host {a:.15g} card {b:.15g}"
+                f" relative gap {g:.3e} (limit {lim:.1e})")
+            checks.append((np.isfinite(a) and g <= lim,
+                           f"eval_device {split} {k}: host {a}, card {b}"))
+    log(f"compute_metrics on the card {card_s * 1e3:.1f} ms, on the host "
+        f"(eval_device='cpu') {host_s * 1e3:.1f} ms, fp64")
+    result["eval_device"] = dict(gaps=ev, card_ms=card_s * 1e3,
+                                 host_ms=host_s * 1e3)
+    stage("eval_device")
+
+    # (iv) the CLI with --checkpoint_dir
+    cli_dir = ck_dir / "cli"
+    R.LAUNCHES = R.BWD_LAUNCHES = 0
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            run = pmain.run(pmain.parse_args([
+                "--model", "SVGP", "--dataset", "boston",
+                "--train_test_seed_split", "1", "--num_inducing", "100",
+                "--epochs", str(RT_EPOCHS), "--verbose_each", "0",
+                "--checkpoint_dir", str(cli_dir)]))
+    finally:
+        cfg.set_precision("fp32")
+    got = (R.LAUNCHES, R.BWD_LAUNCHES)
+    counts["launches"] += got[0]
+    counts["bwd_launches"] += got[1]
+    params, _, step, _ = C.load_checkpoint(str(cli_dir))
+    same = all(torch.equal(p, q.cpu()) for p, q in
+               zip(tree_leaves(params), tree_leaves(run.trainer.params)))
+    log(f"CLI --checkpoint_dir: {run.line}; step_{step} holds the trained "
+        f"parameters bitwise: {same}; kernel calls {run.kernel_calls}")
+    checks.append((same and step == RT_EPOCHS and C.latest_step(str(cli_dir))
+                   == RT_EPOCHS, "CLI --checkpoint_dir"))
+    checks.append((run.kernel_calls == {"train": (RT_EPOCHS, RT_EPOCHS),
+                                        "eval": (4, 0)}
+                   and got == (RT_EPOCHS + 4, RT_EPOCHS),
+                   f"CLI --checkpoint_dir: counts {got}, {run.kernel_calls}"))
+    checks.append((np.isfinite(run.metrics["test"]["logL"]).all(),
+                   "CLI --checkpoint_dir: finite"))
+    result["cli"] = dict(line=run.line, kernel_calls=run.kernel_calls)
+    stage("the CLI")
+
+    # (v) one sweep cell
+    out = ck_dir / "sweep.jsonl"
+    R.LAUNCHES = R.BWD_LAUNCHES = 0
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            recs = sweep.main(["--models", "SVGP", "--datasets", "boston",
+                               "--seeds", "1", "--num_inducing", "100",
+                               "--epochs", str(SWEEP_EPOCHS), "--precision",
+                               "fp32", "--out", str(out)])
+    finally:
+        cfg.set_precision("fp32")
+    got = (R.LAUNCHES, R.BWD_LAUNCHES)
+    counts["launches"] += got[0]
+    counts["bwd_launches"] += got[1]
+    log(f"sweep cell: {json.dumps(recs)}; kernel counts {got}")
+    lines = [json.loads(ln) for ln in out.read_text().splitlines()]
+    checks.append((lines == recs and len(recs) == 1
+                   and not any("error" in r for r in recs),
+                   f"sweep: records {recs}"))
+    checks.append((all(np.isfinite(v) for r in recs for v in r.values()
+                       if isinstance(v, float)), "sweep: finite"))
+    checks.append((got == (SWEEP_EPOCHS + 4, SWEEP_EPOCHS),
+                   f"sweep: counts {got} in {SWEEP_EPOCHS} steps"))
+    result["sweep"] = recs
+    shutil.rmtree(ck_dir, ignore_errors=True)
+    stage("the sweep cell")
+
+    result.update(**counts)
+    for cond, msg in checks:
+        check(cond, msg)
+    return result
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -3741,8 +4127,11 @@ def main() -> int:
     t0 = time.perf_counter()
     battery = battery_phase(dev)
     log(f"battery phase {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    runtime = runtime_phase(dev)
+    log(f"L-BFGS and runtime phase {time.perf_counter() - t0:.1f} s")
     paths = (serving, serving["bayes"], grad, training, experiment, idtgp, wgp,
-             classification, surface, deep, battery)
+             classification, surface, deep, battery, runtime)
 
     fp32_rows = [r for r in rows if "fp32" in r["shape"]]
     train = next(r for r in rows if r["shape"] == "pair 8611+100 fp32")
@@ -3771,7 +4160,7 @@ def main() -> int:
         big_gram=big, serving=serving, gradient=grad, training=training,
         experiment=experiment, id_tgp=idtgp, wgp=wgp,
         classification=classification, surface=surface, deep_natgrad=deep,
-        battery=battery, record=record),
+        battery=battery, runtime=runtime, record=record),
         indent=1,
         default=_jsonable))
 

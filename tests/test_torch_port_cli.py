@@ -231,6 +231,12 @@ def test_cli_table_arch_minibatch_matches_the_jax_cli(monkeypatch, capsys,
     (["--model", "SVGP", "--rng_impl", "rbg"], "item 20"),
 ])
 def test_unported_models_and_flags_refuse(flags, item):
+    if "--checkpoint_dir" in flags:
+        # --checkpoint_dir is ported: the CLI takes it (the checkpoint it
+        # writes is tested in tests/test_torch_port_runtime.py)
+        args = pmain.parse_args(flags + ARGV)
+        assert pmain.refusal(args) is None and args.checkpoint_dir == "ckpt"
+        return
     if item in ("item 18", "item 19"):
         # items 18 and 19 are ported: the CLI takes the solve levers (run
         # against the JAX CLI in tests/test_torch_port_plateau.py), --model

@@ -959,3 +959,71 @@ def test_battery_on_the_card_matches_the_cpu(dev):
         assert _rel(a, b) <= 1e-10
     for k in ("logL", "rmse"):
         assert _rel(m_g[k], m_c[k]) <= 1e-10
+
+
+# ---------------------------------------------------------------------------
+# L-BFGS and a run's runtime
+# ---------------------------------------------------------------------------
+
+def test_lbfgs_trainer_on_the_card_matches_the_cpu(dev):
+    """10 L-BFGS iterations on the SAL(1) TGP above (full batch, fp64), on
+    the card and on the CPU: the curves and every parameter within 1e-10 of
+    the largest entry; each evaluation (an iteration's start and each
+    line-search trial, one host read each) 1 forward launch and 1 backward
+    call."""
+    from tgp.pytorch_tpu_torch.train import lbfgs as LB
+
+    pcfg.set_precision("fp64")
+    try:
+        runs = []
+        for device in (dev, "cpu"):
+            tr = _ng_trainer(device, 60)
+            before = (R.LAUNCHES, R.BWD_LAUNCHES, LB.HOST_READS)
+            tr.train(10, 0.0, "lbfgs", verbose_each=0)
+            runs.append((tr, (R.LAUNCHES - before[0], R.BWD_LAUNCHES - before[1],
+                              LB.HOST_READS - before[2])))
+    finally:
+        pcfg.set_precision("fp32")
+    (gpu, (fwd, bwd, reads)), (cpu, (_, _, cpu_reads)) = runs
+    assert fwd == bwd == reads == cpu_reads and reads > 10
+    assert len(gpu.loss_curve) == 10
+    for attr in ("loss_curve", "ell_curve", "kld_curve"):
+        assert _rel(getattr(gpu, attr), getattr(cpu, attr)) <= 1e-10
+    for a, b in zip(weights.tree_leaves(gpu.params),
+                    weights.tree_leaves(cpu.params)):
+        assert _rel(a, b) <= 1e-10
+
+
+def test_resume_on_the_card_is_bitwise_and_eval_device_cpu_agrees(dev,
+                                                                   tmp_path):
+    """Adam 5 + 5 steps on one card Trainer against 5, save, restore into a
+    fresh card Trainer, 5 more: the same bits; then the restored Trainer's
+    metrics with `eval_device="cpu"` (no launch) against the card's (fp64,
+    within 1e-10)."""
+    pcfg.set_precision("fp64")
+    try:
+        a = _ng_trainer(dev, 60)
+        for _ in range(2):
+            a.train(5, 0.01, "adam", verbose_each=0)
+        b = _ng_trainer(dev, 60)
+        b.train(5, 0.01, "adam", verbose_each=0)
+        b.save(str(tmp_path))
+        c = _ng_trainer(dev, 60)
+        c.restore(str(tmp_path))
+        c.train(5, 0.01, "adam", verbose_each=0)
+        for p, q in zip(weights.tree_leaves(a.params),
+                        weights.tree_leaves(c.params)):
+            assert p.is_cuda and torch.equal(p, q)
+        c.save(str(tmp_path), step=100)
+        d = _ng_trainer(dev, 60)
+        d.restore(str(tmp_path), step=100)
+        d.eval_device = "cpu"
+        want = c.compute_metrics()
+        before = R.LAUNCHES
+        got = d.compute_metrics()
+        assert R.LAUNCHES == before
+    finally:
+        pcfg.set_precision("fp32")
+    for split in ("train", "test"):
+        for k in ("logL", "rmse"):
+            assert _rel(got[split][k], want[split][k]) <= 1e-10

@@ -298,9 +298,11 @@ def test_trainer_natgrad_refusals():
     deep.__dict__.update(tr.__dict__, params={"layers": [tr.params]})
     with pytest.raises(NotImplementedError, match="deep stacks keep Adam"):
         deep.train(1, 0.01, natgrad_gamma=1.0)
-    with pytest.raises(NotImplementedError, match="item 19"):
-        tr.train(1, 0.01, "lbfgs")
     assert tr.loss_curve == []
+    # plain lbfgs is ported (tests/test_torch_port_lbfgs.py): it trains
+    lb, _ = _trainers(60)
+    lb.train(2, 0.0, "lbfgs", verbose_each=0)
+    assert len(lb.loss_curve) == 2 and np.isfinite(lb.loss_curve).all()
 
 
 # ---------------------------------------------------------------------------

@@ -611,7 +611,12 @@ def _classification_matches_jax():
     ("fully_bayesian", "item 13"), ("bn_flow", "item 13"),
     ("classification", "item 16"), ("track_fn", "item 21"),
     ("large_dataset", "item 21"), ("dataset", "item 20")])
-def test_unported_options_raise_and_name_their_item(option, item, monkeypatch):
+def test_unported_options_raise_and_name_their_item(option, item, monkeypatch,
+                                                    tmp_path):
+    if option in ("lbfgs", "save", "restore", "eval_device"):
+        # items 19 and 20's L-BFGS, checkpoints and eval_device are ported
+        # (held in tests/test_torch_port_lbfgs.py and _runtime.py)
+        return _ported_runtime_option(option, tmp_path)
     if option in ("fully_bayesian", "bn_flow"):
         # item 13 is ported: these two now hold the result against JAX
         return _id_option_matches_jax(option, monkeypatch)
@@ -672,6 +677,35 @@ def test_unported_options_raise_and_name_their_item(option, item, monkeypatch):
             tr.train(1, 0.01)
         else:
             return_dataset("airline", 100)
+
+
+def _ported_runtime_option(option, tmp_path):
+    """L-BFGS trains; save writes a checkpoint that restore reads back into
+    a fresh Trainer bit for bit; eval_device="cpu" evaluates as the default
+    does."""
+    tr = _small_trainer()
+    if option == "lbfgs":
+        tr.train(2, 0.01, "lbfgs", verbose_each=0)
+        assert len(tr.loss_curve) == 2
+        assert np.isfinite(np.asarray(tr.loss_curve, np.float64)).all()
+        assert tr._opt_state_kind == "lbfgs"
+        return
+    if option in ("save", "restore"):
+        tr.train(2, 0.01, verbose_each=0)
+        path = tr.save(str(tmp_path))
+        fresh = _small_trainer(seed=5)
+        assert fresh.restore(str(tmp_path)) == 2 and path.endswith("step_2")
+        for a, b in zip(weights.tree_leaves(tr.params),
+                        weights.tree_leaves(fresh.params)):
+            assert torch.equal(a, b)
+        assert torch.equal(tr._gen.get_state(), fresh._gen.get_state())
+        return
+    want = tr.compute_metrics()
+    tr = _small_trainer()
+    tr.eval_device = "cpu"
+    got = tr.compute_metrics()
+    for k in ("logL", "rmse", "coverage"):
+        np.testing.assert_array_equal(got["train"][k], want["train"][k])
 
 
 def test_nan_guard_raises_and_names_the_parameters():

@@ -6,12 +6,14 @@ PyTorch idiom inside: plain functions on tensors, dict parameter trees, an
 explicit `device` and explicit `torch.Generator`s.  It imports neither JAX
 nor anything of the JAX package.
 
-Ported so far: serving and training (`serve.Predictor`, `train.Trainer`),
-the experiment CLI for SVGP, TGP, ID_TGP and WGP (`experiments.main`) and
-the classification protocol (`experiments.classification_protocol`), the
-multi-seed battery (`train.multiseed`, `experiments.battery`), over
-every point-estimate and input-dependent flow, every likelihood (Gaussian,
-warped, Bernoulli, categorical), a scale-RBF ARD kernel and whitened q(U),
+Ported so far: serving and training (`serve.Predictor`, `train.Trainer`,
+with Adam, SGD, natural gradients and L-BFGS, `train.lbfgs`), checkpoints
+and bit-exact resume (`train.checkpoint`), the experiment CLI for SVGP,
+TGP, ID_TGP, WGP and DGP (`experiments.main`), the classification protocol
+(`experiments.classification_protocol`), the multi-seed battery
+(`train.multiseed`, `experiments.battery`) and the sweep runner
+(`experiments.sweep`), metric logging and profiling (`utils`), over every
+point-estimate and input-dependent flow, every kernel kind and likelihood,
 with the fused ARD-RBF Gram and its VJP as hand-written CUDA kernels
 (`ops/rbf_gram.py`, `csrc/`).  Kinds not yet ported raise
 NotImplementedError naming their ROADMAP item.

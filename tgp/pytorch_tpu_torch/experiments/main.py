@@ -9,7 +9,7 @@
         [--fast_solves] [--solve_precision highest|high|default] \\
         [--solve_warmup_epochs E] [--plateau_guard [warn|raise|recover]] \\
         [--natgrad GAMMA [--natgrad_warmup K] [--natgrad_force]] \\
-        [--layers L] [--dgp_flow] [--S_train S]
+        [--layers L] [--dgp_flow] [--S_train S] [--checkpoint_dir DIR]
 
 It takes the flags of the repo's `experiments/main.py` (the JAX package's
 CLI) and does what that CLI does for these models: the UCI split, k-means
@@ -44,6 +44,9 @@ levers, --mesh, --plateau_guard).
 Defaults are the paper's: batch 10000, 15000 epochs, lr 0.01, noise 0.05,
 lengthscale and output scale 2, q(U) variance 1e-5, whitened, fp64 with 100
 quadrature points, S_test 100.
+
+`--checkpoint_dir DIR` writes the trained parameters to DIR/step_<epochs>
+(`train/checkpoint.py`) before the evaluation, as the JAX CLI does.
 
 It runs on the card (`--platform gpu`, the default) or, when asked, on the
 CPU; without a card and without `--platform cpu` it exits non-zero.  Options the
@@ -117,7 +120,6 @@ def refusal(args):
     levers = [
         (args.precision == "bf16", "--precision bf16", 20),
         (args.mesh is not None, "--mesh", 20),
-        (args.checkpoint_dir is not None, "--checkpoint_dir", 20),
         (args.rng_impl == "rbg", "--rng_impl rbg", 20),
     ]
     for on, flag, item in levers:
@@ -185,6 +187,7 @@ def run(args) -> Run:
     from ..models import tgp as M
     from ..ops import kernels as K, rbf_gram as R
     from ..train import Trainer
+    from ..train.checkpoint import save_checkpoint
     from ..weights import tree_map
     from . import flow_arch as FA
     from .exp_config import return_hyperparams
@@ -351,6 +354,8 @@ def run(args) -> Run:
                       verbose_each=args.verbose_each, **natgrad)
     train_time = time.time() - t0
     calls = [(R.LAUNCHES, R.BWD_LAUNCHES)]
+    if args.checkpoint_dir:
+        save_checkpoint(args.checkpoint_dir, trainer.params, step=args.epochs)
     m = trainer.compute_metrics()
     calls.append((R.LAUNCHES, R.BWD_LAUNCHES))
 
@@ -400,6 +405,7 @@ def run_dgp(args, loaders, dc, Z0, device) -> Run:
     from ..models.deep import DeepTGPSpec, init_deep_params, layer_spec
     from ..ops import kernels as K, rbf_gram as R
     from ..train import Trainer
+    from ..train.checkpoint import save_checkpoint
     from . import flow_arch as FA
 
     Dy, Dx = dc["Dy"], dc["Dx"]
@@ -438,6 +444,8 @@ def run_dgp(args, loaders, dc, Z0, device) -> Run:
     trainer.train(args.epochs, args.lr, "adam", verbose_each=args.verbose_each)
     train_time = time.time() - t0
     calls.append((R.LAUNCHES, R.BWD_LAUNCHES))
+    if args.checkpoint_dir:
+        save_checkpoint(args.checkpoint_dir, trainer.params, step=args.epochs)
     m = trainer.compute_metrics()
     calls.append((R.LAUNCHES, R.BWD_LAUNCHES))
     test = m["test"]

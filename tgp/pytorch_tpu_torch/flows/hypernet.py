@@ -181,10 +181,39 @@ def _generate(fn, generator):
     return fn(generator)
 
 
+class DeviceDraws:
+    """A `torch.Generator` whose draws are made on its own device and then
+    moved to the device that the caller asks for: evaluation on the host CPU
+    of a model trained on the card (`Trainer.eval_device = "cpu"`) draws
+    from the Trainer's one generator, so the stream stays one and the card's
+    and the host's evaluations see the same draws."""
+
+    def __init__(self, gen: torch.Generator):
+        self.gen = gen
+
+    def get_state(self):
+        return self.gen.get_state()
+
+    def set_state(self, state):
+        self.gen.set_state(state)
+
+
+def with_generator(fn, x, generator):
+    """fn(x, generator) for a draw shaped by a tensor x (bernoulli,
+    multinomial); under `DeviceDraws`, x goes to the generator's device and
+    the draw comes back to x's."""
+    if isinstance(generator, DeviceDraws):
+        return fn(x.to(generator.gen.device), generator.gen).to(x.device)
+    return fn(x, generator)
+
+
 def _draw(kind: str, shape, p, generator: torch.Generator, dtype, device):
     """Every random draw of the hypernets: kind 'keep' a dropout keep-mask,
     True with probability p; kind 'normal' standard-normal VI noise (p is
-    unused).  `generator` may be `ReplicaGenerators`."""
+    unused).  `generator` may be `ReplicaGenerators` or `DeviceDraws`."""
+    if isinstance(generator, DeviceDraws):
+        return _draw(kind, shape, p, generator.gen, dtype,
+                     generator.gen.device).to(device)
     if kind == "keep":
         return _generate(lambda g: torch.rand(
             shape, generator=g, dtype=dtype, device=device) < p, generator)
@@ -192,7 +221,11 @@ def _draw(kind: str, shape, p, generator: torch.Generator, dtype, device):
 
 
 def randn(shape, generator, dtype, device):
-    """Standard normals from a `torch.Generator` or `ReplicaGenerators`."""
+    """Standard normals from a `torch.Generator`, `ReplicaGenerators` or
+    `DeviceDraws`."""
+    if isinstance(generator, DeviceDraws):
+        return randn(shape, generator.gen, dtype,
+                     generator.gen.device).to(device)
     return _generate(lambda g: torch.randn(shape, generator=g, dtype=dtype,
                                            device=device), generator)
 

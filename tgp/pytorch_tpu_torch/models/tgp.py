@@ -722,11 +722,14 @@ def sample_predictive(spec: TGPSpec, params, X, S: int, rng: torch.Generator,
     check_likelihood(lik)
     fk, _, _, f0 = sample_marginal(spec, params, X, S, rng, fully_bayesian, qf)
     if lik.kind == "bernoulli":
-        y = torch.bernoulli(torch.special.ndtr(fk), generator=rng)
+        y = hypernet.with_generator(
+            lambda p, g: torch.bernoulli(p, generator=g),
+            torch.special.ndtr(fk), rng)
     elif lik.kind == "categorical":
         probs = torch.softmax(torch.movedim(fk, 1, -1), dim=-1)  # (S, MB, C)
-        y = torch.multinomial(probs.reshape(-1, probs.shape[-1]), 1,
-                              generator=rng)
+        y = hypernet.with_generator(
+            lambda p, g: torch.multinomial(p, 1, generator=g),
+            probs.reshape(-1, probs.shape[-1]), rng)
         y = y.reshape(S, 1, -1).to(fk.dtype)
     else:
         C_y = noise_variance(lik, lp)                             # (Dy, 1)

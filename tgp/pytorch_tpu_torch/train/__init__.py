@@ -1,3 +1,4 @@
 from .optimizers import make_optimizer, build_grouped_optimizer
 from .trainer import Trainer
 from . import metrics
+from . import multiseed

@@ -25,7 +25,8 @@ Nothing inside a chunk of steps reads a value back: the (elbo, ell, kld)
 rows stay on the device and a chunk fetches them with one copy.
 
 Not ported: `mesh=` (the replica axis sharded over cards; ROADMAP Queue 1
-item 20) and L-BFGS (item 19).
+item 20).  L-BFGS is refused, as the JAX battery refuses it: a full solver
+with its own line search does not compose with the battery's optimizer.
 """
 
 from __future__ import annotations
@@ -43,7 +44,7 @@ from ..weights import tree_leaves, tree_map, tree_unflatten
 from . import group_adam as GA
 from .metrics import inside_95
 from .natgrad import gamma_at, guard_step_arch, natgrad_multiseed_step
-from .optimizers import build_grouped_optimizer, param_paths
+from .optimizers import LBFGS_REFUSAL, build_grouped_optimizer, param_paths
 from .trainer import frozen_param_labels
 
 _MESH_MSG = ("a battery on a mesh (the replica axis sharded over cards) is "
@@ -106,8 +107,7 @@ def _optimizer(spec, params_stack, opt: str, lr: float, clip_norm,
     phases); 'sgd' is the stateless grouped SGD.  `clip_norm` clips each
     replica's gradients first (`clip_by_global_norm_per_replica`)."""
     if opt == "lbfgs":
-        raise NotImplementedError("lbfgs is not ported yet (ROADMAP Queue 1 "
-                                  "item 19)")
+        raise NotImplementedError(LBFGS_REFUSAL)
     frozen = frozen_param_labels(spec, params_stack)
     if extra_frozen is not None:
         frozen = tree_unflatten(frozen, [

@@ -9,7 +9,9 @@ unmatched parameter gets the global lr.
 The Adam family ('adam', 'adam_W', 'adam_R') is `train/group_adam.py`, which
 carries its moments across schedule phases.  'sgd' is torch SGD at momentum
 0: stateless, with L2 weight decay added to the gradient, so each phase
-builds it afresh.  L-BFGS waits for ROADMAP Queue 1 item 19.
+builds it afresh.  L-BFGS (`lbfgs_optimizer`, `train/lbfgs.py`) is a
+full solver with its own line search: the Trainer runs it full batch, and
+it does not compose with parameter groups or schedules.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ from typing import Sequence
 import torch
 
 from ..weights import tree_leaves, tree_unflatten
+from .lbfgs import LBFGS
 
 
 def _parse_specs(specs, default_wd: float = 0.0):
@@ -35,12 +38,29 @@ def _parse_specs(specs, default_wd: float = 0.0):
     return parsed
 
 
+#: the JAX package's refusal of L-BFGS as a grouped or per-phase optimizer
+#: (JAX `train/optimizers.py:37-42`)
+LBFGS_REFUSAL = (
+    "lbfgs is a full solver with its own linesearch — it does not "
+    "compose with parameter groups / schedules; use "
+    "Trainer.train(opt='lbfgs') without an optimisation_schedule, "
+    "or lbfgs_optimizer() directly")
+
+
+def lbfgs_optimizer(memory_size: int = 15) -> LBFGS:
+    """L-BFGS with the zoom line search (strong-Wolfe stepsizes), as the
+    JAX package builds it: memory 15, at most 25 line-search trials, the
+    stepsize from the line search (`train/lbfgs.py`).  Its `update` takes
+    the value, the gradient and a value-and-gradient function (see the
+    Trainer's L-BFGS phase)."""
+    return LBFGS(memory_size=memory_size)
+
+
 def make_optimizer(opt: str, lr: float, weight_decay: float = 0.0):
     """Single-group 'sgd' step: a function (g, p) -> the update to add to p,
     -lr * (g + weight_decay * p)."""
     if opt == "lbfgs":
-        raise NotImplementedError("lbfgs is not ported yet (ROADMAP Queue 1 "
-                                  "item 19)")
+        raise NotImplementedError(LBFGS_REFUSAL)
     if opt in ("adam", "adam_W", "adam_R"):
         raise NotImplementedError(
             f"{opt!r} is train/group_adam.py in the port, for the Trainer "

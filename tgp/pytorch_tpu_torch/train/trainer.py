@@ -43,27 +43,39 @@ package's `train/trainer.py`.
     launch a layer (the log-likelihood, the moments and the samples share
     one propagation of the inputs).
 
-Not ported yet: L-BFGS (ROADMAP Queue 1 item 19), meshes, checkpoints and
-evaluation on another device (item 20), `track_fn` and the host minibatch
-loop for datasets over 512 MB (item 21).
+  * L-BFGS (`opt="lbfgs"`, `train/lbfgs.py`): full batch only, no
+    schedules, no natgrad; an iteration is one value-and-gradient and one
+    per line-search trial, each one launch of the Gram kernel's forward and
+    one backward call a rbf leaf, with the generator restarted at the
+    phase's state for each (one fixed draw a phase).  The line search reads
+    two scalars back at its start and each trial.
+  * Checkpoints (`save`, `restore`, `train/checkpoint.py`): a restored
+    Trainer continues the run bit for bit.  `eval_device = "cpu"` computes
+    the metrics on the host CPU, with the draws still from the generator.
+
+Not ported yet: meshes (ROADMAP Queue 1 item 20), `track_fn` and the host
+minibatch loop for datasets over 512 MB (item 21).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import time
 
 import numpy as np
 import torch
 
 from .. import config as cfg
+from ..flows.hypernet import DeviceDraws
 from ..models import deep, tgp as tgp_mod
 from ..models.tgp import TGPSpec
 from ..weights import tree_leaves, tree_map, tree_unflatten
-from . import group_adam as GA
+from . import group_adam as GA, lbfgs as LB
+from .checkpoint import load_checkpoint, save_checkpoint, to_device
 from .metrics import calibration_measures, inside_95
 from .natgrad import gamma_at, guard_step_arch, natgrad_train_step
-from .optimizers import build_grouped_optimizer, param_paths
+from .optimizers import build_grouped_optimizer, lbfgs_optimizer, param_paths
 
 
 def frozen_param_labels(spec: TGPSpec, params):
@@ -141,7 +153,9 @@ class Trainer:
         #: evaluate with S_MC = S_test hypernet draws (MC-dropout or VI
         #: posterior of the flow) instead of the point-estimate flow
         self.fully_bayesian = False
-        #: evaluation on another device, which waits for item 20
+        #: "cpu" computes `compute_metrics` on the host CPU (the reference's
+        #: inference_in_cpu, for an S_test that does not fit the card);
+        #: None evaluates on `device`
         self.eval_device = None
         #: raise FloatingPointError, naming the non-finite parameters, when
         #: the ELBO goes non-finite (checked per chunk, or every 50 epochs)
@@ -164,8 +178,9 @@ class Trainer:
         self._ng_t = 0          # natgrad steps taken under the warmup ramp
 
     # ------------------------------------------------------------------
-    def _put(self, a):
-        return torch.as_tensor(np.asarray(a), dtype=self.dtype).to(self.device)
+    def _put(self, a, device=None):
+        return torch.as_tensor(np.asarray(a), dtype=self.dtype).to(
+            self.device if device is None else device)
 
     def _check_finite(self, where: str):
         if not self.nan_guard or not self.loss_curve:
@@ -318,9 +333,6 @@ class Trainer:
             frozen = tree_unflatten(paths, [
                 bool(f) or p.endswith("q_mu") or p.endswith("q_L")
                 for f, p in zip(tree_leaves(frozen), tree_leaves(paths))])
-        if opt == "lbfgs":
-            raise NotImplementedError("lbfgs is not ported yet (ROADMAP Queue 1 "
-                                      "item 19)")
         self._natgrad_gamma = natgrad_gamma
         self._natgrad_warmup = (int(natgrad_warmup)
                                 if natgrad_warmup is not None else None)
@@ -329,8 +341,22 @@ class Trainer:
         full_batch = len(self.train_loader) == 1
         for per, specs in zip(percentages, specifications):
             phase_epochs = int(epochs * per)
-            step = self._build_phase_optimizer(specs, lr_ALL, opt, frozen,
-                                               clip_norm)
+            if opt == "lbfgs":
+                # a full solver with its own line search: full batch only,
+                # no parameter groups
+                if specs is not None:
+                    raise NotImplementedError(
+                        "lbfgs does not support optimisation schedules")
+                if not full_batch:
+                    raise NotImplementedError(
+                        "lbfgs requires the full-batch path (one batch, no "
+                        "track_fn) — its linesearch needs a deterministic "
+                        "objective")
+                step = self._lbfgs_phase(frozen)
+            else:
+                step = functools.partial(
+                    self._step, self._build_phase_optimizer(
+                        specs, lr_ALL, opt, frozen, clip_norm))
             run = self._run_full_batch if full_batch else self._run_minibatch
             ep_done = run(step, phase_epochs, epochs, ep_done, ve, verbose_each)
         if self.spec.has_bn_flow:
@@ -346,6 +372,7 @@ class Trainer:
 
     def _run_full_batch(self, step, phase_epochs, epochs, ep_done, ve,
                         verbose_each):
+        """Runs `step(X, Y) -> (elbo, ell, kld)` phase_epochs times."""
         X, Y = next(iter(self.train_loader))
         Xd, Yd = self._put(X), self._put(Y)
         # chunk boundaries align to validate_each, as evaluation stops a chunk
@@ -355,7 +382,7 @@ class Trainer:
         while done < phase_epochs:
             n = min(chunk, phase_epochs - done,
                     ve - (ep_done % ve) if ve <= epochs else chunk)
-            self._record([self._step(step, Xd, Yd) for _ in range(n)])
+            self._record([step(Xd, Yd) for _ in range(n)])
             prev_ep = ep_done
             done += n
             ep_done += n
@@ -393,11 +420,11 @@ class Trainer:
             perm = torch.from_numpy(perm).to(self.device)
             for b in range(n_batches):
                 ids = perm[b * MB:(b + 1) * MB]
-                last = self._step(step, Xd[ids], Yd[ids])
+                last = step(Xd[ids], Yd[ids])
             if rem:
                 # the remainder batch (the reference's drop_last=False)
                 ids = perm[n - rem:]
-                self._step(step, Xd[ids], Yd[ids])
+                step(Xd[ids], Yd[ids])
             pending.append(last)
             ep_done += 1
             check = ep_done % 50 == 0
@@ -417,6 +444,54 @@ class Trainer:
             if evaluate:
                 print(f"|   eval @ {ep_done}: {self.compute_metrics()}")
         return ep_done
+
+    def _lbfgs_phase(self, frozen):
+        """The L-BFGS phase's iteration, `step(X, Y) -> (elbo, ell, kld)`
+        at the iteration's start (JAX `Trainer._make_lbfgs_scan`).
+
+        The objective must be one function for the line search: every
+        evaluation of the phase (an iteration's start and each trial)
+        restarts the Trainer's generator from its state at the phase's
+        start, so a stochastic model draws the same masks at each, and the
+        stream ends one evaluation's draws on, as JAX's one key a phase
+        leaves it.  Frozen leaves get zero gradients, so the directions never
+        move them.  The solver's state carries across chunks and starts
+        afresh each phase; a spec swapped by the plateau guard's recovery is
+        read at the next evaluation."""
+        opt = lbfgs_optimizer()
+        leaves = tree_leaves(self.params)
+        keep = [not f for f in tree_leaves(frozen)]
+        gen_state = self._gen.get_state()
+        self._opt_state_kind = "lbfgs"
+        self._opt_state_carry = opt.init(LB.flatten(leaves))
+
+        def objective(pp, X, Y):
+            self._gen.set_state(gen_state)
+            e, ell, kld = tgp_mod.elbo(
+                self.spec, tree_unflatten(self.params, pp), X, Y, self._gen)
+            grads = torch.autograd.grad(-e, pp, allow_unused=True,
+                                        materialize_grads=True)
+            return e.detach(), ell.detach(), kld.detach(), grads
+
+        def step(X, Y):
+            def value_and_grad(flat):
+                pp = [t.detach().requires_grad_(True)
+                      for t in LB.unflatten(flat, leaves)]
+                e, _, _, grads = objective(pp, X, Y)
+                return -e, LB.flatten(grads)
+
+            e, ell, kld, grads = objective(leaves, X, Y)
+            g = LB.flatten([gg if k else torch.zeros_like(gg)
+                            for gg, k in zip(grads, keep)])
+            updates, self._opt_state_carry = opt.update(
+                g, self._opt_state_carry, LB.flatten(leaves), value=-e,
+                grad=g, value_and_grad_fn=value_and_grad)
+            with torch.no_grad():
+                for p, u in zip(leaves, LB.unflatten(updates, leaves)):
+                    p.add_(u)
+            return torch.stack([e, ell, kld])
+
+        return step
 
     def _build_phase_optimizer(self, specs, lr_ALL, opt, frozen,
                                clip_norm=None):
@@ -469,23 +544,61 @@ class Trainer:
     # ------------------------------------------------------------------
     # Checkpoints
     # ------------------------------------------------------------------
-    def save(self, *args, **kwargs):
-        raise NotImplementedError("Trainer checkpoints are not ported yet "
-                                  "(ROADMAP Queue 1 item 20)")
+    def save(self, path: str, step: int | None = None,
+             async_save: bool = False):
+        """Checkpoint the whole training state to `<path>/step_<step>`
+        (default: the length of the ELBO curve): the parameters, the carried
+        optimizer state and its kind, the generator's state and the kind of
+        device it lives on, the training loader's shuffle stream,
+        `fully_bayesian` and natgrad's warmup position; enough for
+        `restore` to continue a run bit for bit."""
+        extra = {"generator": self._gen.get_state(),
+                 "generator_device": self.device.type,
+                 "fully_bayesian": bool(self.fully_bayesian),
+                 # a fresh loader would replay the first epoch's permutation
+                 "loader_state": self.train_loader._rng.bit_generator.state,
+                 "ng_t": int(self._ng_t),
+                 "opt_kind": self._opt_state_kind}
+        return save_checkpoint(
+            path, self.params,
+            step=len(self.loss_curve) if step is None else step,
+            opt_state=self._opt_state_carry, extra=extra,
+            async_save=async_save)
 
-    def restore(self, *args, **kwargs):
-        raise NotImplementedError("Trainer checkpoints are not ported yet "
-                                  "(ROADMAP Queue 1 item 20)")
+    def restore(self, path: str, step: int | None = None):
+        """Load a checkpoint written by `save` into this Trainer, every
+        tensor on its device; returns the checkpoint's step.  A generator's
+        state goes only into a generator on the same kind of device, so a
+        checkpoint from another kind raises ValueError."""
+        params, opt_state, step, extra = load_checkpoint(path, step)
+        kind = extra["generator_device"]
+        if kind != self.device.type:
+            raise ValueError(
+                f"the checkpoint's generator state comes from a {kind} "
+                f"generator and cannot seed this Trainer's "
+                f"{self.device.type} generator; restore it into a Trainer "
+                f"on {kind}")
+        self.params = to_device(params, self.device, self.dtype)
+        for t in tree_leaves(self.params):
+            t.requires_grad_(True)
+        self._opt_state_carry = to_device(opt_state, self.device)
+        self._opt_state_kind = extra["opt_kind"]
+        self._gen.set_state(extra["generator"])
+        self.fully_bayesian = extra["fully_bayesian"]
+        self.train_loader._rng.bit_generator.state = extra["loader_state"]
+        self._ng_t = extra["ng_t"]
+        return step
 
     # ------------------------------------------------------------------
     # Evaluation
     # ------------------------------------------------------------------
     @torch.no_grad()
-    def _eval_batch(self, X, Y):
+    def _eval_batch(self, X, Y, ev=None):
         """(log p(Y|X) (Dy,), predictive mean (Dy, MB), whether each Y lies
         inside its 95% band of S_test predictive samples (Dy, MB)).  Two
         `marginal_qf` calls: the log-likelihood's and the one that the
-        moments and the samples share.
+        moments and the samples share.  `ev` is `_evaluation()`'s (by
+        default, this call's).
 
         Classification: (log p(Y|X) (1,), class probabilities (MB, C), None),
         with the same two calls; one predictive sample is drawn, as the JAX
@@ -495,36 +608,54 @@ class Trainer:
         S_test) paths (one `marginal_qf` a layer), and the log-likelihood,
         the moments (spec.S_test paths each) and the S_test samples share
         them."""
-        spec, params = self.spec, self.params
+        ev = ev or self._evaluation()
+        spec, params, rng = self.spec, ev["params"], ev["rng"]
         is_class = spec.likelihood.is_classification
         fb = dict(S_MC=self.S_test if self.fully_bayesian else 1,
-                  fully_bayesian=self.fully_bayesian, rng=self._gen)
+                  fully_bayesian=self.fully_bayesian, rng=rng)
         if deep.is_deep(spec):
             X_in = X
-            qf = deep.propagate(spec, params, X, self._gen,
+            qf = deep.propagate(spec, params, X, rng,
                                 max(spec.S_test, self.S_test))
             log_p = tgp_mod.test_log_likelihood(
-                spec, params, X, Y, self._Y_std_dev, qf=qf, **fb)
+                spec, params, X, Y, ev["Y_std"], qf=qf, **fb)
         else:
             log_p = tgp_mod.test_log_likelihood(
-                spec, params, X, Y, self._Y_std_dev, **fb)
+                spec, params, X, Y, ev["Y_std"], **fb)
             X_in = tgp_mod._ensure_3d(spec, X)
             qf = tgp_mod.marginal_qf(spec, params, X_in)
         m1 = tgp_mod.predictive_distribution(spec, params, X_in, qf=qf, **fb)[0]
         samples = tgp_mod.sample_predictive(
-            spec, params, X_in, 1 if is_class else self.S_test, self._gen,
+            spec, params, X_in, 1 if is_class else self.S_test, rng,
             self.fully_bayesian, qf=qf)[0]
         if is_class:
             return log_p, m1, None
         return log_p, m1, inside_95(samples, Y.T, dim=1)
 
-    def _class_metrics_for_loader(self, loader):
+    def _evaluation(self):
+        """Where evaluation runs: the Trainer's device, or the host CPU when
+        `eval_device == "cpu"`, with the parameters copied there and the
+        draws still from the Trainer's generator on its device
+        (`hypernet.DeviceDraws`)."""
+        if self.eval_device not in (None, "cpu"):
+            raise ValueError(f"eval_device must be None or 'cpu', got "
+                             f"{self.eval_device!r}")
+        if self.eval_device is None or self.device.type == "cpu":
+            return {"device": self.device, "params": self.params,
+                    "rng": self._gen, "Y_std": self._Y_std_dev}
+        cpu = torch.device("cpu")
+        return {"device": cpu, "params": to_device(self.params, cpu),
+                "rng": DeviceDraws(self._gen),
+                "Y_std": self._Y_std_dev.to(cpu)}
+
+    def _class_metrics_for_loader(self, loader, ev):
         """logL (1,), accuracy and calibration over a loader (JAX
         `train/trainer.py:911-967`)."""
         ElogL, correct, tot = np.zeros(1), 0.0, 0
         all_probs, all_labels = [], []
         for X, Y in loader:
-            log_p, probs, _ = self._eval_batch(self._put(X), self._put(Y))
+            log_p, probs, _ = self._eval_batch(self._put(X, ev["device"]),
+                                               self._put(Y, ev["device"]), ev)
             probs = probs.cpu().numpy()
             labels = np.asarray(Y).reshape(-1)
             ElogL[0] += log_p.cpu().numpy().sum()
@@ -536,14 +667,16 @@ class Trainer:
                 "calibration": calibration_measures(
                     np.concatenate(all_probs), np.concatenate(all_labels))}
 
-    def _metrics_for_loader(self, loader):
+    def _metrics_for_loader(self, loader, ev=None):
+        ev = ev or self._evaluation()
         if self.spec.likelihood.is_classification:
-            return self._class_metrics_for_loader(loader)
+            return self._class_metrics_for_loader(loader, ev)
         Dy = self.spec.Dy
         ElogL, sq_err, coverage = np.zeros(Dy), np.zeros(Dy), np.zeros(Dy)
         tot = 0
         for X, Y in loader:
-            log_p, m1, inside = self._eval_batch(self._put(X), self._put(Y))
+            log_p, m1, inside = self._eval_batch(
+                self._put(X, ev["device"]), self._put(Y, ev["device"]), ev)
             ElogL += log_p.cpu().numpy()
             sq_err += np.sum((m1.cpu().numpy() - np.asarray(Y).T) ** 2, axis=-1)
             coverage += inside.sum(dim=-1).cpu().numpy()
@@ -553,13 +686,12 @@ class Trainer:
 
     def compute_metrics(self):
         """Full-split metrics for train/valid/test: logL, rmse and coverage
-        per output, or for classification logL, acc and calibration."""
-        if self.eval_device is not None:
-            raise NotImplementedError("eval_device is not ported yet (ROADMAP "
-                                      "Queue 1 item 20)")
-        res = {"train": self._metrics_for_loader(self.train_loader)}
+        per output, or for classification logL, acc and calibration.  With
+        `eval_device = "cpu"` they are computed on the host CPU."""
+        ev = self._evaluation()
+        res = {"train": self._metrics_for_loader(self.train_loader, ev)}
         if self.valid_loader is not None:
-            res["valid"] = self._metrics_for_loader(self.valid_loader)
+            res["valid"] = self._metrics_for_loader(self.valid_loader, ev)
         if self.test_loader is not None:
-            res["test"] = self._metrics_for_loader(self.test_loader)
+            res["test"] = self._metrics_for_loader(self.test_loader, ev)
         return res
