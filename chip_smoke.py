@@ -122,6 +122,21 @@ Phases, each of which fails the run (non-zero exit) on any error:
      against the card's metrics (fp64, 1e-10); the CLI with
      `--checkpoint_dir` and one sweep cell (`experiments.sweep`), boston
      SVGP at M=100.
+ 14. large corpora: a synthetic airline.csv (2,058,097 rows of
+     `benchmarks/airline_scale.py`'s synthetic data) parsed by the native
+     parser (`data/native.py`, built with g++) and by `np.loadtxt` (the
+     same bits), `data.large.load_airline` (1,955,192 training rows);
+     airline_scale's model (SAL(2), M=500 from k-means, batch 10000, fp32)
+     on the device-resident minibatch path (196 steps an epoch, 1 forward
+     launch and 1 backward call each), its steps/s, a profile, the test
+     rows' metrics; 20 steps in fp64 on the card against the CPU; the
+     Trainer's host loop (a `track_fn`, and DEVICE_RESIDENT_BYTES = 0)
+     against the device-resident epoch; `spec.remat` (2 forward launches
+     and 1 backward call a step, bitwise the plain step, on airline and on
+     a boston ID_TGP whose masks are replayed); a YearMSD-shaped file
+     (60,000 x 91) through `load_year`, 20 steps at Dx=90 in fp64 against
+     the CPU and in fp32.  The kernel phase holds the pair at airline's
+     10000+500 and 5192+500 and YearMSD's 10000+100 at Dx=90.
 The line before the last holds the kernels' JSON record, the last line
 `{"ok": true, "device": {...}}`.  Details go to chiprun_out/chip_smoke.json.
 """
@@ -142,7 +157,9 @@ sys.path.insert(0, str(HERE))
 
 # H100 SXM published peaks (NVIDIA data sheet, dense, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 34e12}   # outside tensor cores
+# fp32 outside the tensor cores; fp64 on the tensor cores (FP64 Tensor Core),
+# the larger of the two fp64 rates, so the bound is the least time
+PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 67e12}
 
 F32_TOL = dict(rtol=2e-5, atol=2e-5)      # tests/test_pallas.py's tolerance
 F64_TOL = dict(rtol=1e-12, atol=1e-12)
@@ -166,6 +183,33 @@ def nvidia_smi() -> str:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60, check=True)
     return res.stdout.strip().splitlines()[0]
+
+
+def host_cpu() -> dict:
+    """The host CPU and the math library behind the CPU references: the
+    model name, cores, torch's threads, the vector capability it dispatches
+    to, and the BLAS/LAPACK it was built with (the CPU references' rounding
+    depends on them)."""
+    import os
+    import re
+
+    model = ""
+    try:
+        with open("/proc/cpuinfo") as f:
+            model = next((ln.split(":", 1)[1].strip() for ln in f
+                          if ln.startswith("model name")), "")
+    except OSError:
+        pass
+    show = torch.__config__.show()
+    libs = dict(re.findall(r"(BLAS_INFO|LAPACK_INFO)=(\w+)", show))
+    mkl = next((ln.strip() for ln in
+                torch.__config__.parallel_info().splitlines()
+                if "Math Kernel Library" in ln), "")
+    return dict(model=model, cores=os.cpu_count(),
+                torch_threads=torch.get_num_threads(),
+                capability=torch.backends.cpu.get_cpu_capability(),
+                blas=libs.get("BLAS_INFO", ""),
+                lapack=libs.get("LAPACK_INFO", ""), mkl=mkl)
 
 
 def graph_ms(fn, calls=100, replays=5) -> float:
@@ -322,6 +366,14 @@ KERNEL_SHAPES = [  # (label, Dy, N, M, Dx, dtype, pair)
     # Dx=13, fp64)
     ("pair 8611+100 Dy=10 fp32", 10, 8611, 100, 4, F32, True),
     ("pair 455+100 Dy=10 Dx=13 fp64", 10, 455, 100, 13, F64, True),
+    # the large corpora (phase 14): airline's batch of 10000 and its
+    # training remainder of 5192 against M=500 (Dx=8, fp32); YearMSD's
+    # width, Dx=90, at M=100 in fp32 and fp64 (the first shape whose bound
+    # is set by operations)
+    ("pair 10000+500 Dx=8 fp32", 1, 10000, 500, 8, F32, True),
+    ("pair 5192+500 Dx=8 fp32", 1, 5192, 500, 8, F32, True),
+    ("pair 10000+100 Dx=90 fp32", 1, 10000, 100, 90, F32, True),
+    ("pair 10000+100 Dx=90 fp64", 1, 10000, 100, 90, F64, True),
 ]
 # more rows than the earlier kernel's grid took (65535 tiles of 32)
 BIG_GRAM = ("K_xz 2200000x8 Dx=1 fp32", 1, 2_200_000, 8, 1, F32)
@@ -4079,6 +4131,699 @@ def runtime_phase(dev):
     return result
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the large corpora
+# ---------------------------------------------------------------------------
+
+AIR_ROWS = 2_058_097      # the airline corpus after filtering
+AIR_TRAIN, AIR_TEST = 1_955_192, 102_905   # load_airline's fallback split
+AIR_M = 500               # benchmarks/airline_scale.py's model and batch
+AIR_BATCH = 10_000
+AIR_STEPS = 196           # an epoch: 195 batches and the remainder of 5192
+AIR_KMEANS_ROWS = 200_000  # its k-means: the first rows, n_init=1
+AIR_HELD_ROWS = 100_000   # card against CPU: 2 epochs of 10 steps, fp64
+YEAR_ROWS, YEAR_TRAIN = 60_000, 50_000   # a row cut of YearMSD's 515,345
+YEAR_M = 100
+YEAR_EPOCHS = 4           # 5 batches of 10000 an epoch: 20 steps
+LARGE_LR = 0.01
+# The card's fp64 runs against the CPU's after 20 steps, relative to the
+# largest entry of each group in the CPU's run: 10x the gaps first measured
+# (NVIDIA H100 80GB HBM3, 700 W), and at least 1e-14, a few units in the
+# last place (the noise and the output scale agreed to the bit).
+AIR_F64_LIMITS = {"gpu64_vs_cpu64": {
+    "curve": 4.3e-14, "kld": 1.1e-12, "Z": 2.8e-11, "flow": 1.1e-14,
+    "kernel/child/raw_lengthscale": 1.8e-14, "kernel/raw_outputscale": 1e-14,
+    "likelihood/log_var_noise": 1e-14, "q_L": 1.2e-9, "q_mu": 2.4e-10}}
+YEAR_F64_LIMITS = {"gpu64_vs_cpu64": {
+    "curve": 1e-14, "kld": 1e-14, "Z": 1.6e-13, "flow": 1e-14,
+    "kernel/child/raw_lengthscale": 1e-14, "kernel/raw_outputscale": 1e-14,
+    "likelihood/log_var_noise": 1e-14, "q_L": 4.3e-13, "q_mu": 7.0e-14}}
+# the host loop against the device-resident epoch where they are not
+# bitwise equal (tests/test_minibatch_path.py's tolerance)
+HOST_LOOP_TOL = dict(rtol=5e-5, atol=1e-6)
+
+
+def write_table(path, data, fmts, chunk=100_000):
+    """`data` as comma-separated lines, column j in printf format fmts[j],
+    formatted a chunk of rows at a time."""
+    line = ",".join(fmts) + "\n"
+    with open(path, "w") as f:
+        for i in range(0, data.shape[0], chunk):
+            part = data[i:i + chunk]
+            f.write((line * part.shape[0]) % tuple(part.ravel().tolist()))
+
+
+def airline_table(n):
+    """An airline-shaped table: 8 seeded features and the target,
+    `benchmarks/airline_scale.py`'s synthetic rows."""
+    rng = np.random.RandomState(0)
+    X = rng.randn(n, 8)
+    f = np.sin(X[:, :1]) + 0.3 * X[:, 1:2] * X[:, 2:3]
+    return np.c_[X, f + 0.3 * rng.randn(n, 1)]
+
+
+def year_table(n):
+    """A YearMSD-shaped table: the year (1922-2011) in the first column,
+    then 90 seeded features with spreads from 1 to 150, as the timbre
+    averages and covariances spread."""
+    rng = np.random.RandomState(1)
+    scale = np.exp(rng.uniform(0.0, 5.0, 90))
+    X = rng.randn(n, 90) * scale
+    year = np.clip(np.round(1998 + 8 * np.tanh(X[:, :4].sum(1) / scale[:4].sum())
+                            + 6 * rng.randn(n)), 1922, 2011)
+    return np.c_[year, X]
+
+
+def large_model(kind, X, Z0, device):
+    """(spec, params) of phase 14's models, in the configured precision:
+    airline_scale's (SAL(2), scale-RBF, 100 GH nodes, min_var 1e-8, M=500)
+    or the CLI's year TGP (its table's SAL(5), M=100), both from
+    `variance_scale` 1e-5 and lengthscale and output scale 2."""
+    from tgp.pytorch_tpu_torch.experiments import flow_arch as FA
+    from tgp.pytorch_tpu_torch.flows import generators as G, spec_from_list
+    from tgp.pytorch_tpu_torch.likelihoods import LikelihoodSpec
+    from tgp.pytorch_tpu_torch.models import tgp as M
+    from tgp.pytorch_tpu_torch.ops import kernels as K
+
+    np.random.seed(0)
+    if kind == "airline":
+        fspec, finits = spec_from_list(G.SAL(2))
+        N = AIR_TRAIN
+    else:
+        arch, nb, _ = FA.resolve_tgp_arch("year")
+        fspec, finits = FA.build_point_flow(arch, nb)
+        N = YEAR_TRAIN
+    spec = M.TGPSpec(Dy=1, Dx=X.shape[1], M=Z0.shape[0], N=float(N),
+                     kernel=K.from_name("scale_rbf"),
+                     likelihood=LikelihoodSpec("gaussian_flow", 1,
+                                               quad_points=100),
+                     flow=fspec, min_var=1e-8)
+    params = M.init_tgp_params(
+        spec, X[:AIR_BATCH], Z0, variance_scale=1e-5,
+        kernel_init={"length_scale": 2.0, "kernel_scale": 2.0},
+        flow_inits=finits, device=device)
+    return spec, params
+
+
+def large_trainer(spec, params, X, Y, Y_std, device, test=None, **kw):
+    """A Trainer over (X, Y) in batches of 10000 (loader seed 0), S_test 20
+    (airline_scale's), the test rows' loader when given."""
+    from tgp.pytorch_tpu_torch.data import ArrayDataset, DataLoader
+    from tgp.pytorch_tpu_torch.train import Trainer
+
+    loaders = [DataLoader(ArrayDataset(X, Y), AIR_BATCH, seed=0)]
+    if test is not None:
+        loaders.append(DataLoader(ArrayDataset(*test), AIR_BATCH,
+                                  shuffle=False))
+    return Trainer(spec, params, loaders, Y_std, S_test=20, device=device,
+                   **kw)
+
+
+def large_run(kind, X, Y, Z0, Y_std, device, precision, epochs):
+    """`epochs` epochs of the `kind` model on (X, Y) from its init: the
+    curves and parameters (fp64 on the host), the kernels' counts from 0
+    and the wall time."""
+    from tgp.pytorch_tpu_torch import config as cfg
+    from tgp.pytorch_tpu_torch.ops import rbf_gram as R
+
+    cfg.set_precision(precision)
+    try:
+        spec, params = large_model(kind, X, Z0, "cpu")
+        tr = large_trainer(spec, params, X, Y, Y_std, device)
+        R.LAUNCHES = R.BWD_LAUNCHES = 0
+        t0 = time.perf_counter()
+        tr.train(epochs, LARGE_LR, "adam", verbose_each=0)
+        wall = time.perf_counter() - t0
+        counts = (R.LAUNCHES, R.BWD_LAUNCHES)
+    finally:
+        cfg.set_precision("fp32")
+    values = {n: np.asarray(c, np.float64) for n, c in
+              (("curve", tr.loss_curve), ("kld", tr.kld_curve))}
+    values.update((n, t.detach().double().cpu().numpy())
+                  for n, t in named_leaves(tr.params))
+    return dict(values=values, counts=counts, wall_s=wall,
+                steps=epochs * len(tr.train_loader), device=tr.device.type)
+
+
+def _large_job(fn, *a):
+    """A phase 14 job in a worker process (three torch threads)."""
+    torch.set_num_threads(3)
+    return fn(*a)
+
+
+def _kmeans_job(X, M):
+    from tgp.pytorch_tpu_torch.data import kmeans_centers
+
+    t0 = time.perf_counter()
+    Z = kmeans_centers(X, M, n_init=1)
+    return Z, time.perf_counter() - t0
+
+
+def leaf_gap(a, b):
+    """The largest gap between two trees' leaves, relative to each leaf's
+    largest entry in `b`."""
+    from tgp.pytorch_tpu_torch.weights import tree_leaves
+
+    return max(float((p - q).detach().abs().max()
+                     / (q.detach().abs().max() or 1.0))
+               for p, q in zip(tree_leaves(a), tree_leaves(b)))
+
+
+LARGE_ROOT = HERE / "build" / "large_root"   # phase 14's TGP_DATA_ROOT
+
+
+def airline_prepare(root):
+    """Phase 14's airline table and k-means centers, in a worker: writes
+    <root>/regression/airline/airline.csv, loads it (`load_airline(seed=1)`)
+    and returns (Z0, the write's seconds, the k-means' seconds)."""
+    from tgp.pytorch_tpu_torch.data import kmeans_centers, large
+
+    torch.set_num_threads(1)
+    d = Path(root) / "regression" / "airline"
+    d.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    write_table(d / "airline.csv", airline_table(AIR_ROWS), ["%.6f"] * 9)
+    write_s = time.perf_counter() - t0
+    X = large.load_airline(seed=1, data_dir=str(d))["X_tr"]
+    t0 = time.perf_counter()
+    Z0 = kmeans_centers(X[:AIR_KMEANS_ROWS], AIR_M, n_init=1)
+    return Z0, write_s, time.perf_counter() - t0
+
+
+class LargePrep:
+    """`airline_prepare` in a spawned worker with one BLAS thread, started
+    before the phases that precede phase 14 so that its k-means (minutes
+    on the host) runs beside them; `result()` waits for it, `stop()` ends
+    the worker."""
+
+    def __init__(self):
+        import multiprocessing
+        import os
+        import shutil
+
+        shutil.rmtree(LARGE_ROOT, ignore_errors=True)
+        env = {k: "1" for k in ("OMP_NUM_THREADS", "OPENBLAS_NUM_THREADS",
+                                "MKL_NUM_THREADS")}
+        prev = {k: os.environ.get(k) for k in env}
+        os.environ.update(env)            # the worker spawns with these
+        try:
+            self.pool = multiprocessing.get_context("spawn").Pool(1)
+        finally:
+            for k, v in prev.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+        self.t0 = time.perf_counter()
+        self.job = self.pool.apply_async(airline_prepare, (str(LARGE_ROOT),))
+
+    def result(self):
+        t = time.perf_counter()
+        out = self.job.get()
+        return out + (time.perf_counter() - t, t - self.t0)
+
+    def stop(self):
+        self.pool.terminate()
+        self.pool.join()
+
+
+def large_phase(dev, prep=None):
+    """The large corpora on the card:
+      (i) a synthetic airline.csv (2,058,097 rows, airline_scale's rows) in
+          a data root of its own; its parse timed by the native parser
+          (where it builds) and `np.loadtxt`, the same bits;
+          `load_airline(seed=1)`: 1,955,192 training and 102,905 test rows;
+     (ii) airline_scale's model (SAL(2), M=500 from k-means over the first
+          200,000 rows, batch 10000, Adam at lr 0.01, fp32) trained on the
+          device-resident path: a warm epoch, then 2 timed (196 steps an
+          epoch, 1 forward launch and 1 backward call each), 10 steps
+          profiled, the test rows' metrics (2 launches a batch);
+    (iii) fp64 on the card against the CPU, 20 steps (100,000 rows);
+     (iv) the host loop: an epoch with a `track_fn` and one with
+          DEVICE_RESIDENT_BYTES = 0, each against the device-resident epoch
+          from the same start and loader seed;
+      (v) remat: an airline step's loss and gradients with and without it
+          (2 forward launches and 1 backward call, peak memory and time
+          logged), and a boston ID_TGP step (its table's nets, dropout 0.5)
+          whose generator ends where a plain step's does;
+     (vi) a YearMSD-shaped file (60,000 x 91) through
+          `load_year(n_train=50000)`: 20 steps of the CLI's year TGP at
+          M=100 in fp64 on the card against the CPU, and in fp32.
+    `prep` is the `LargePrep` started before the earlier phases (the
+    airline table and its k-means); None starts one here and waits."""
+    import dataclasses
+    import multiprocessing
+    import os
+    import shutil
+    from concurrent.futures import ProcessPoolExecutor
+
+    from tgp.pytorch_tpu_torch import config as cfg
+    from tgp.pytorch_tpu_torch.data import large, native, return_dataset
+    from tgp.pytorch_tpu_torch.experiments import flow_arch as FA
+    from tgp.pytorch_tpu_torch.likelihoods import LikelihoodSpec
+    from tgp.pytorch_tpu_torch.models import tgp as M
+    from tgp.pytorch_tpu_torch.ops import kernels as K, rbf_gram as R
+    from tgp.pytorch_tpu_torch.train import Trainer
+    from tgp.pytorch_tpu_torch.weights import tree_leaves, tree_unflatten
+
+    result, checks = {}, []
+    counts = {"launches": 0, "bwd_launches": 0}
+    t_phase = time.perf_counter()
+
+    def stage(name):
+        log(f"phase 14: {name} done at {time.perf_counter() - t_phase:.1f} s")
+
+    def add(got):
+        counts["launches"] += got[0]
+        counts["bwd_launches"] += got[1]
+
+    own_prep = prep is None
+    if own_prep:
+        prep = LargePrep()
+    root = LARGE_ROOT
+    air_dir = root / "regression" / "airline"
+    year_dir = root / "regression" / "uci"
+    # the data root, and three BLAS threads in the workers (spawned with
+    # this environment), restored at the end
+    env = {"TGP_DATA_ROOT": str(root), "OMP_NUM_THREADS": "3",
+           "OPENBLAS_NUM_THREADS": "3", "MKL_NUM_THREADS": "3"}
+    prev_env = {k: os.environ.get(k) for k in env}
+
+    def boston():
+        """boston's split from the caller's data root, not the phase's."""
+        os.environ.pop("TGP_DATA_ROOT")
+        if prev_env["TGP_DATA_ROOT"] is not None:
+            os.environ["TGP_DATA_ROOT"] = prev_env["TGP_DATA_ROOT"]
+        try:
+            return return_dataset("boston", 10000, seed=1)
+        finally:
+            os.environ["TGP_DATA_ROOT"] = str(root)
+
+    os.environ.update(env)
+    pool = ProcessPoolExecutor(
+        max_workers=2, mp_context=multiprocessing.get_context("spawn"))
+    try:
+        # (i) the airline table (written in the worker) parsed
+        Z0, write_s, km_s, wait_s, since_s = prep.result()
+        log(f"the worker's airline table and k-means: ready {since_s:.1f} s "
+            f"after it started, {wait_s:.1f} s waited here")
+        year_dir.mkdir(parents=True)
+        size = (air_dir / "airline.csv").stat().st_size
+        have_native = native.available()
+        parse = {"g++": shutil.which("g++"), "native": have_native,
+                 "native_error": native._error, "write_s": write_s,
+                 "bytes": size}
+        if have_native:
+            t0 = time.perf_counter()
+            a = native.read_csv(str(air_dir / "airline.csv"))
+            parse["native_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        b = np.loadtxt(air_dir / "airline.csv", delimiter=",")
+        parse["numpy_s"] = time.perf_counter() - t0
+        if have_native:
+            checks.append((np.array_equal(a, b),
+                           "airline.csv: the native parser's array is not "
+                           "numpy's"))
+            del a
+        del b
+        t0 = time.perf_counter()
+        split = large.load_airline(seed=1)
+        parse["load_airline_s"] = time.perf_counter() - t0
+        X_tr, Y_tr = split["X_tr"], split["Y_tr"]
+        X_te, Y_te = split["X_te"], split["Y_te"]
+        log(f"airline.csv: {AIR_ROWS} rows, {size} bytes, written in "
+            f"{write_s:.2f} s; g++ {parse['g++']}, native parser "
+            f"{'built' if have_native else 'not built: ' + str(native._error)}"
+            f"; parse {parse.get('native_s', float('nan')):.3f} s native, "
+            f"{parse['numpy_s']:.3f} s np.loadtxt; load_airline (the native "
+            f"parser, the split and the z-scores) in "
+            f"{parse['load_airline_s']:.3f} s: {X_tr.shape[0]} "
+            f"training and {X_te.shape[0]} test rows, "
+            f"{(X_tr.nbytes + Y_tr.nbytes) / 1e6:.1f} MB of training data")
+        checks.append((X_tr.shape == (AIR_TRAIN, 8) and Y_tr.shape ==
+                       (AIR_TRAIN, 1) and X_te.shape == (AIR_TEST, 8),
+                       f"load_airline: {X_tr.shape}, {X_te.shape}"))
+        result["parse"] = parse
+        stage("the airline table")
+
+        # the year table
+        t0 = time.perf_counter()
+        write_table(year_dir / "YearPredictionMSD.txt", year_table(YEAR_ROWS),
+                    ["%d"] + ["%.6f"] * 90)
+        t1 = time.perf_counter()
+        ysplit = large.load_year(n_train=YEAR_TRAIN)
+        parse["load_year_s"] = time.perf_counter() - t1
+        log(f"YearPredictionMSD.txt: {YEAR_ROWS} x 91 written and loaded "
+            f"(the native parser; load_year {parse['load_year_s']:.3f} s) in "
+            f"{time.perf_counter() - t0:.2f} s")
+        Xy, Yy = ysplit["X_tr"], ysplit["Y_tr"]
+        checks.append((Xy.shape == (YEAR_TRAIN, 90) and ysplit["X_te"].shape
+                       == (YEAR_ROWS - YEAR_TRAIN, 90), f"load_year: {Xy.shape}"))
+        km_year = pool.submit(_large_job, _kmeans_job, Xy, YEAR_M)
+        log(f"k-means over {AIR_KMEANS_ROWS} airline rows, M={AIR_M}, "
+            f"n_init=1: {km_s:.1f} s (the worker, one BLAS thread, beside "
+            f"the earlier phases)")
+        result.update(kmeans_s=km_s, prep_wait_s=wait_s)
+
+        # (iii) fp64 on the card (the CPU's run follows the timed runs)
+        held = (X_tr[:AIR_HELD_ROWS], Y_tr[:AIR_HELD_ROWS])
+        runs = {"gpu64": large_run("airline", *held, Z0, split["Y_std"], dev,
+                                   "fp64", 2)}
+
+        # (ii) the device-resident path, fp32
+        cfg.set_precision("fp32")
+        try:
+            spec, params = large_model("airline", X_tr, Z0, "cpu")
+            tr = large_trainer(spec, params, X_tr, Y_tr, split["Y_std"], dev,
+                               test=(X_te, Y_te))
+            R.LAUNCHES = R.BWD_LAUNCHES = 0
+            t0 = time.perf_counter()
+            tr.train(1, LARGE_LR, "adam", verbose_each=0)
+            warm_s = time.perf_counter() - t0
+            got = (R.LAUNCHES, R.BWD_LAUNCHES)
+            add(got)
+            checks.append((got == (AIR_STEPS, AIR_STEPS),
+                           f"airline warm epoch: counts {got}"))
+            epoch1 = [t.detach().clone() for t in tree_leaves(tr.params)]
+            epoch1_curve = list(tr.loss_curve)
+            # --- the main path: counts from 0, 1 and 1 a step
+            R.LAUNCHES = R.BWD_LAUNCHES = 0
+            t0 = time.perf_counter()
+            tr.train(2, LARGE_LR, "adam", verbose_each=0)
+            timed_s = time.perf_counter() - t0
+            got = (R.LAUNCHES, R.BWD_LAUNCHES)
+            # -----------------------------------------------------------
+            add(got)
+            checks.append((got == (2 * AIR_STEPS, 2 * AIR_STEPS),
+                           f"airline 2 epochs: counts {got}"))
+            checks.append((np.isfinite(np.asarray(tr.loss_curve)).all(),
+                           "airline fp32: finite ELBO"))
+            train = dict(warm_epoch_s=warm_s, epoch_s=timed_s / 2,
+                         steps_per_s=2 * AIR_STEPS / timed_s,
+                         rows_per_s=2 * AIR_TRAIN / timed_s,
+                         elbo=[float(v) for v in tr.loss_curve])
+            log(f"airline fp32 device-resident: warm epoch {warm_s:.2f} s, "
+                f"then {train['epoch_s']:.3f} s an epoch, "
+                f"{train['steps_per_s']:.2f} steps/s, "
+                f"{train['rows_per_s']:.0f} rows/s; ELBO "
+                + ", ".join(f"{v:.1f}" for v in train["elbo"]))
+            # 10 steps profiled: an epoch of the first 100,000 rows
+            tr10 = large_trainer(spec, tr.params, X_tr[:AIR_HELD_ROWS],
+                                 Y_tr[:AIR_HELD_ROWS], split["Y_std"], dev)
+            R.LAUNCHES = R.BWD_LAUNCHES = 0
+            prof = profile_device(lambda: tr10.train(1, LARGE_LR, "adam",
+                                                     verbose_each=0))
+            got = (R.LAUNCHES, R.BWD_LAUNCHES)
+            add(got)
+            n10 = AIR_HELD_ROWS // AIR_BATCH
+            checks.append((got == (2 * n10, 2 * n10),
+                           f"airline profile: counts {got}"))
+            per_step = {k: prof[k] / n10 for k in ("device_ops",
+                                                  "device_busy_ms",
+                                                  "gram_ms", "gram_bwd_ms")}
+            step_ms = 1e3 / train["steps_per_s"]
+            log(f"airline step {step_ms:.3f} ms; profiled: "
+                f"{per_step['device_ops']:.1f} device ops, busy "
+                f"{per_step['device_busy_ms']:.3f} ms = "
+                f"{per_step['device_busy_ms'] / step_ms:.1%} of a step; Gram "
+                f"forward {per_step['gram_ms'] * 1e3:.2f} us, backward "
+                f"{per_step['gram_bwd_ms'] * 1e3:.2f} us a step")
+            for name, ms in prof["top_ms"]:
+                log(f"    {ms * 1e3 / n10:9.2f} us a step  {name}")
+            train.update(profile_per_step=per_step,
+                         profile_top_ms=prof["top_ms"])
+            # the test rows' metrics
+            R.LAUNCHES = R.BWD_LAUNCHES = 0
+            t0 = time.perf_counter()
+            m = tr._metrics_for_loader(tr.test_loader)
+            eval_s = time.perf_counter() - t0
+            got = (R.LAUNCHES, R.BWD_LAUNCHES)
+            add(got)
+            n_eval = len(tr.test_loader)
+            checks.append((got == (2 * n_eval, 0),
+                           f"airline test metrics: counts {got}, {n_eval} "
+                           f"batches"))
+            checks.append((all(np.isfinite(v).all() for v in m.values()),
+                           f"airline test metrics: {m}"))
+            log(f"airline test rows ({AIR_TEST}, {n_eval} batches, "
+                f"{eval_s:.2f} s): NLL {-float(m['logL'][0]):.4f}, RMSE "
+                f"{float(m['rmse'][0]):.4f}, coverage "
+                f"{float(m['coverage'][0]):.4f}")
+            train["test"] = {k: float(v[0]) for k, v in m.items()}
+            train["eval_s"] = eval_s
+            result["airline"] = train
+            stage("the device-resident training")
+
+            # (iv) the host loop, one epoch from the start, loader seed 0
+            result["host_loop"] = {}
+            for mode in ("track_fn", "host_bytes"):
+                calls = []
+                h = large_trainer(spec, params, X_tr, Y_tr, split["Y_std"],
+                                  dev, track_fn=(lambda t: calls.append(1))
+                                  if mode == "track_fn" else None)
+                if mode == "host_bytes":
+                    h.DEVICE_RESIDENT_BYTES = 0
+                R.LAUNCHES = R.BWD_LAUNCHES = 0
+                t0 = time.perf_counter()
+                h.train(1, LARGE_LR, "adam", verbose_each=0)
+                s = time.perf_counter() - t0
+                got = (R.LAUNCHES, R.BWD_LAUNCHES)
+                add(got)
+                same = all(torch.equal(p, q) for p, q in
+                           zip(tree_leaves(h.params), epoch1))
+                gap = leaf_gap(h.params, tree_unflatten(tr.params, epoch1))
+                curve_same = (len(h.loss_curve) == AIR_STEPS and
+                              float(h.loss_curve[-2]) == float(epoch1_curve[0]))
+                log(f"airline host loop ({mode}): {s:.2f} s an epoch, "
+                    f"{AIR_STEPS / s:.2f} steps/s (device-resident "
+                    f"{train['steps_per_s']:.2f}); counts {got}; track_fn "
+                    f"calls {len(calls)}; bitwise the device-resident epoch: "
+                    f"{same} (largest leaf gap {gap:.3e}); its last full "
+                    f"batch's ELBO the same: {curve_same}")
+                checks.append((got == (AIR_STEPS, AIR_STEPS),
+                               f"host loop {mode}: counts {got}"))
+                if mode == "track_fn":
+                    checks.append((len(calls) == AIR_STEPS,
+                                   f"track_fn: {len(calls)} calls"))
+                checks.append((same or all(
+                    np.allclose(p.cpu().numpy(), q.cpu().numpy(),
+                                **HOST_LOOP_TOL)
+                    for p, q in zip(tree_leaves(h.params), epoch1)),
+                    f"host loop {mode}: leaf gap {gap}"))
+                result["host_loop"][mode] = dict(
+                    epoch_s=s, steps_per_s=AIR_STEPS / s, bitwise=same,
+                    leaf_gap=gap, curve_same=curve_same, calls=len(calls))
+                del h
+            stage("the host loop")
+
+            # (v) remat: one airline step's loss and gradients
+            Xb = torch.as_tensor(X_tr[:AIR_BATCH], dtype=torch.float32,
+                                 device=dev)
+            Yb = torch.as_tensor(Y_tr[:AIR_BATCH], dtype=torch.float32,
+                                 device=dev)
+
+            def value_and_grad(sp):
+                leaves = [t.detach().clone().requires_grad_(True)
+                          for t in tree_leaves(tr.params)]
+                e = M.elbo(sp, tree_unflatten(tr.params, leaves), Xb, Yb)[0]
+                g = torch.autograd.grad(-e, leaves, allow_unused=True,
+                                        materialize_grads=True)
+                return e.detach(), g
+
+            remat = {}
+            outs = {}
+            for on in (False, True):
+                sp = dataclasses.replace(spec, remat=on)
+                R.LAUNCHES = R.BWD_LAUNCHES = 0
+                value_and_grad(sp)                     # warm
+                torch.cuda.synchronize()
+                before = (R.LAUNCHES, R.BWD_LAUNCHES)
+                base = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+                outs[on] = value_and_grad(sp)
+                torch.cuda.synchronize()
+                got = (R.LAUNCHES - before[0], R.BWD_LAUNCHES - before[1])
+                peak = torch.cuda.max_memory_allocated() - base
+                times = []
+                for _ in range(5):
+                    t0 = time.perf_counter()
+                    value_and_grad(sp)
+                    torch.cuda.synchronize()
+                    times.append(time.perf_counter() - t0)
+                add((R.LAUNCHES, R.BWD_LAUNCHES))      # warm, held and timed
+                checks.append(((R.LAUNCHES, R.BWD_LAUNCHES) ==
+                               (7 * got[0], 7 * got[1]),
+                               f"remat={on}: counts over 7 calls "
+                               f"{(R.LAUNCHES, R.BWD_LAUNCHES)}, {got} held"))
+                remat[on] = dict(counts=got, peak_bytes=peak,
+                                 step_ms=1e3 * float(np.median(times)))
+                checks.append((got == ((2, 1) if on else (1, 1)),
+                               f"remat={on}: counts {got}"))
+            same = (torch.equal(outs[False][0], outs[True][0]) and
+                    all(torch.equal(a, b) for a, b in
+                        zip(outs[False][1], outs[True][1])))
+            log(f"airline step with remat: loss and gradients bitwise the "
+                f"plain step's: {same}; counts {remat[True]['counts']} "
+                f"(plain {remat[False]['counts']}); peak memory above the "
+                f"resident {remat[True]['peak_bytes'] / 2**20:.1f} MiB "
+                f"(plain {remat[False]['peak_bytes'] / 2**20:.1f}); "
+                f"value and gradient {remat[True]['step_ms']:.3f} ms (plain "
+                f"{remat[False]['step_ms']:.3f})")
+            checks.append((same, "remat: the airline step is not bitwise"))
+            result["remat"] = {"airline": {str(k): v for k, v in
+                                           remat.items()}, "bitwise": same}
+        finally:
+            cfg.set_precision("fp32")
+
+        cpu_air = pool.submit(_large_job, large_run, "airline", *held, Z0,
+                              split["Y_std"], "cpu", "fp64", 2)
+
+        # remat on boston ID_TGP: the masks replayed
+        _, d = boston()
+        np.random.seed(cfg.config_seed)
+        flow, inits = FA.build_id_flow("boston", 13)
+        bspec = M.TGPSpec(Dy=1, Dx=13, M=100, N=float(d["N_tr"]),
+                          kernel=K.from_name("scale_rbf"),
+                          likelihood=LikelihoodSpec("gaussian_flow", 1),
+                          flow=flow)
+        bparams = M.init_tgp_params(
+            bspec, d["X_tr"], d["X_tr"][:100], variance_scale=1e-5,
+            kernel_init={"length_scale": 2.0, "kernel_scale": 2.0},
+            flow_inits=inits, device="cpu")
+        id_tr, id_counts = {}, {}
+        for on in (False, True):
+            # a loader each: the one batch's order is the loader's first draw
+            loaders, _ = boston()
+            t = Trainer(dataclasses.replace(bspec, remat=on), bparams,
+                        loaders, d["Y_std"], seed=5, device=dev)
+            R.LAUNCHES = R.BWD_LAUNCHES = 0
+            t.train(1, LARGE_LR, "adam", verbose_each=0)
+            id_counts[on] = (R.LAUNCHES, R.BWD_LAUNCHES)
+            add(id_counts[on])
+            id_tr[on] = t
+        id_same = (all(torch.equal(p, q) for p, q in
+                       zip(tree_leaves(id_tr[False].params),
+                           tree_leaves(id_tr[True].params)))
+                   and torch.equal(id_tr[False]._gen.get_state(),
+                                   id_tr[True]._gen.get_state()))
+        log(f"boston ID_TGP step (nets 13 -> 25 -> 1, dropout 0.5) with "
+            f"remat: parameters and the generator's state bitwise a plain "
+            f"step's: {id_same}; counts {id_counts[True]} (plain "
+            f"{id_counts[False]})")
+        checks.append((id_same and id_counts == {False: (1, 1),
+                                                 True: (2, 1)},
+                       f"remat ID_TGP: {id_same}, {id_counts}"))
+        result["remat"]["id_tgp"] = dict(bitwise=id_same, counts={
+            str(k): v for k, v in id_counts.items()})
+        stage("remat")
+
+        # (vi) year at Dx=90
+        Z0y, kmy_s = km_year.result()
+        cpu_year = pool.submit(_large_job, large_run, "year", Xy, Yy, Z0y,
+                               ysplit["Y_std"], "cpu", "fp64", YEAR_EPOCHS)
+        yruns = {"gpu64": large_run("year", Xy, Yy, Z0y, ysplit["Y_std"], dev,
+                                    "fp64", YEAR_EPOCHS),
+                 "gpu32": large_run("year", Xy, Yy, Z0y, ysplit["Y_std"], dev,
+                                    "fp32", YEAR_EPOCHS)}
+        runs["cpu64"] = cpu_air.result()
+        yruns["cpu64"] = cpu_year.result()
+        stage("the fp64 runs")
+    finally:
+        pool.shutdown(wait=True, cancel_futures=True)
+        if own_prep:
+            prep.stop()
+        for k, v in prev_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        shutil.rmtree(root, ignore_errors=True)
+
+    for tag, rs, limits in (("airline", runs, AIR_F64_LIMITS),
+                            ("year", yruns, YEAR_F64_LIMITS)):
+        for k, r in rs.items():
+            log(f"{tag} {k}: {r['steps']} steps in {r['wall_s']:.2f} s, "
+                f"counts {r['counts']}, ELBO "
+                + ", ".join(f"{v:.6f}" for v in r["values"]["curve"]))
+            checks.append((all(np.isfinite(v).all()
+                               for v in r["values"].values()),
+                           f"{tag} {k}: finite"))
+            if r["device"] == "cuda":
+                add(r["counts"])
+                checks.append((r["counts"] == (r["steps"], r["steps"]),
+                               f"{tag} {k}: counts {r['counts']}"))
+        vals = {k: r["values"] for k, r in rs.items()}
+        gaps = held_gaps(vals, {"gpu64_vs_cpu64": ("gpu64", "cpu64")},
+                         exp_group, limits, f"{tag} fp64 20 steps", checks)
+        result[f"{tag}_f64"] = dict(gaps=gaps, runs={
+            k: {kk: vv for kk, vv in r.items() if kk != "values"}
+            for k, r in rs.items()})
+    c64 = yruns["cpu64"]["values"]["curve"]
+    to64 = float(np.abs(yruns["gpu32"]["values"]["curve"] - c64).max()
+                 / np.abs(c64).max())
+    log(f"year fp32 on the card: the curve {to64:.3e} from the CPU's fp64 "
+        f"(logged); k-means over {YEAR_TRAIN} rows at Dx=90, M={YEAR_M}: "
+        f"{kmy_s:.1f} s")
+    result["year_f64"]["fp32_to_fp64"] = to64
+    result["year_kmeans_s"] = kmy_s
+    stage("the comparisons")
+    result.update(**counts)
+    for cond, msg in checks:
+        check(cond, msg)
+    return result
+
+
+def kmeans_timing(rows=AIR_ROWS, M=100, n_init=10):
+    """The experiment CLI's k-means (`data.kmeans_centers(X_tr, M,
+    n_init=10)`) over load_airline's training rows of a synthetic
+    airline.csv, timed on the host CPU: a JSON line after each of the
+    n_init runs (its Lloyd iterations and seconds) and one for the whole.
+
+        python -c "import chip_smoke as c; c.kmeans_timing()"
+    """
+    import os
+    import shutil
+
+    from tgp.pytorch_tpu_torch import config as cfg
+    from tgp.pytorch_tpu_torch.data import kmeans, large
+
+    root = HERE / "build" / "kmeans_root"
+    d = root / "regression" / "airline"
+    d.mkdir(parents=True, exist_ok=True)
+    try:
+        write_table(d / "airline.csv", airline_table(rows), ["%.6f"] * 9)
+        X = large.load_airline(seed=1, data_dir=str(d))["X_tr"]
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    iters, runs = [0], []
+    step, single = kmeans._lloyd_step, kmeans._kmeans_single
+
+    def counted_step(*a):
+        iters[0] += 1
+        return step(*a)
+
+    def timed_single(*a):
+        t0, i0 = time.perf_counter(), iters[0]
+        out = single(*a)
+        runs.append(dict(run=len(runs), lloyd_iterations=iters[0] - i0,
+                         seconds=time.perf_counter() - t0, inertia=out[1]))
+        print(json.dumps(runs[-1]), flush=True)
+        return out
+
+    kmeans._lloyd_step, kmeans._kmeans_single = counted_step, timed_single
+    try:
+        t0 = time.perf_counter()
+        kmeans.kmeans_centers(X, M, n_init=n_init, seed=cfg.config_seed)
+        s = time.perf_counter() - t0
+    finally:
+        kmeans._lloyd_step, kmeans._kmeans_single = step, single
+    rec = dict(rows=int(X.shape[0]), Dx=int(X.shape[1]), M=M, n_init=n_init,
+               seconds=s, lloyd_iterations=iters[0],
+               cpu_count=os.cpu_count())
+    print(json.dumps(rec), flush=True)
+    return rec
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -4092,6 +4837,8 @@ def main() -> int:
     name = torch.cuda.get_device_name(0)
     log(f"device: {name}; torch {torch.__version__}, CUDA {torch.version.cuda}; "
         f"{smi}")
+    cpu = host_cpu()
+    log("host CPU (the CPU references): " + json.dumps(cpu))
 
     t0 = time.perf_counter()
     ptxas = R.build()
@@ -4121,17 +4868,25 @@ def main() -> int:
     t0 = time.perf_counter()
     surface = surface_phase(dev)
     log(f"model surface phase {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    deep = deep_natgrad_phase(dev)
-    log(f"deep and natgrad phase {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    battery = battery_phase(dev)
-    log(f"battery phase {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    runtime = runtime_phase(dev)
-    log(f"L-BFGS and runtime phase {time.perf_counter() - t0:.1f} s")
+    # phase 14's airline table and k-means, in a worker beside phases 11-13
+    prep = LargePrep()
+    try:
+        t0 = time.perf_counter()
+        deep = deep_natgrad_phase(dev)
+        log(f"deep and natgrad phase {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        battery = battery_phase(dev)
+        log(f"battery phase {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        runtime = runtime_phase(dev)
+        log(f"L-BFGS and runtime phase {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        large = large_phase(dev, prep)
+        log(f"large corpora phase {time.perf_counter() - t0:.1f} s")
+    finally:
+        prep.stop()
     paths = (serving, serving["bayes"], grad, training, experiment, idtgp, wgp,
-             classification, surface, deep, battery, runtime)
+             classification, surface, deep, battery, runtime, large)
 
     fp32_rows = [r for r in rows if "fp32" in r["shape"]]
     train = next(r for r in rows if r["shape"] == "pair 8611+100 fp32")
@@ -4155,12 +4910,12 @@ def main() -> int:
     out_dir = HERE / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(dict(
-        device=name, nvidia_smi=smi, torch=torch.__version__,
+        device=name, nvidia_smi=smi, host_cpu=cpu, torch=torch.__version__,
         cuda=torch.version.cuda, build_s=build_s, kernel_rows=rows,
         big_gram=big, serving=serving, gradient=grad, training=training,
         experiment=experiment, id_tgp=idtgp, wgp=wgp,
         classification=classification, surface=surface, deep_natgrad=deep,
-        battery=battery, runtime=runtime, record=record),
+        battery=battery, runtime=runtime, large=large, record=record),
         indent=1,
         default=_jsonable))
 

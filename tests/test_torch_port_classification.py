@@ -310,7 +310,7 @@ def test_classification_loaders_match_jax(monkeypatch, tmp_path, name):
 def test_missing_corpus_names_its_file():
     with pytest.raises(FileNotFoundError, match="not present"):
         pucc.load_banknote(1)
-    with pytest.raises(NotImplementedError, match="item 20"):
+    with pytest.raises(FileNotFoundError, match="airline corpus missing"):
         preg.return_dataset("airline", 100)
 
 

@@ -47,6 +47,9 @@ WGP_SHAPES = [(1, 256, 100, 13), (1, 4096, 100, 13), (1, 455, 20, 13),
 # paths in an evaluation batch
 DGP_SHAPES = [(13, 455, 100, 13), (13, 5100, 100, 13), (8, 7373, 100, 8),
               (8, 737300, 100, 8)]
+# the large corpora's: airline's batch of 10000 against M=500 (Dx=8), and
+# YearMSD's width (Dx=90) at M=100
+LARGE_SHAPES = [(1, 10000, 500, 8), (1, 10000, 100, 90)]
 
 
 @pytest.fixture
@@ -97,7 +100,8 @@ def test_kernel_matches_plain_version(dev, shape, dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 # (2, 37, 300, 50): Z too wide for the shared-memory budget, staged in chunks
 @pytest.mark.parametrize("shape", SHAPES + [TRAIN, (2, 37, 300, 50)] + CLI_SHAPES
-                         + CLASS_SHAPES + WGP_SHAPES + DGP_SHAPES)
+                         + CLASS_SHAPES + WGP_SHAPES + DGP_SHAPES
+                         + LARGE_SHAPES)
 def test_pair_kernel_matches_plain_version(dev, shape, dtype):
     Xs, Zs, ks = _inputs(dev, shape, dtype)
     before = R.LAUNCHES
@@ -129,7 +133,8 @@ def test_gradients_match_autograd_of_plain_version(dev, dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("shape", [(2, 131, 77, 3), (1, 4096, 100, 4), TRAIN,
                                    (3, 1, 1, 9), (2, 37, 300, 50)] + CLI_SHAPES
-                         + CLASS_SHAPES + WGP_SHAPES + DGP_SHAPES)
+                         + CLASS_SHAPES + WGP_SHAPES + DGP_SHAPES
+                         + LARGE_SHAPES)
 def test_backward_kernel_matches_plain_version(dev, shape, dtype, pair):
     Xs, Zs, ks = _inputs(dev, shape, dtype, seed=2)
     Dy, N, M, _ = shape
@@ -1027,3 +1032,58 @@ def test_resume_on_the_card_is_bitwise_and_eval_device_cpu_agrees(dev,
     for split in ("train", "test"):
         for k in ("logL", "rmse"):
             assert _rel(got[split][k], want[split][k]) <= 1e-10
+
+
+def test_remat_step_launches_the_forward_twice_and_gives_the_plain_bits(dev):
+    """`spec.remat` recomputes marginal_qf in the backward: 2 forward
+    launches and 1 backward call a step, and the loss and every gradient
+    bitwise the plain step's (the flagship, 8611 rows, fp32)."""
+    import dataclasses
+    from tgp.pytorch_tpu_torch.models import tgp as M_
+
+    spec, params, X, Y = _power_model(dev)
+    outs, calls = [], []
+    for remat in (False, True):
+        leaves = [t.detach().clone().requires_grad_(True)
+                  for t in weights.tree_leaves(params)]
+        before = (R.LAUNCHES, R.BWD_LAUNCHES)
+        e = M_.elbo(dataclasses.replace(spec, remat=remat),
+                    weights.tree_unflatten(params, leaves), X, Y)[0]
+        g = torch.autograd.grad(-e, leaves, allow_unused=True,
+                                materialize_grads=True)
+        torch.cuda.synchronize()
+        calls.append((R.LAUNCHES - before[0], R.BWD_LAUNCHES - before[1]))
+        outs.append((e.detach(), g))
+    assert calls == [(1, 1), (2, 1)]
+    assert torch.equal(outs[0][0], outs[1][0])
+    for a, b in zip(outs[0][1], outs[1][1]):
+        assert torch.equal(a, b)
+
+
+def test_host_loop_is_bitwise_the_device_resident_path(dev):
+    """The Trainer's host loop (DEVICE_RESIDENT_BYTES = 0, and a track_fn)
+    against the device-resident minibatch path: the same rows in the same
+    order through the same kernels, 1 and 1 launches a step, the same
+    bits (fp64, 60 rows in batches of 16: 4 steps an epoch)."""
+    pcfg.set_precision("fp64")
+    try:
+        trs, counts, calls = [], [], []
+        for mode in ("resident", "host_bytes", "track_fn"):
+            tr = _ng_trainer(dev, 16)
+            if mode == "host_bytes":
+                tr.DEVICE_RESIDENT_BYTES = 0
+            if mode == "track_fn":
+                tr.track_fn = lambda t: calls.append(1)
+            before = (R.LAUNCHES, R.BWD_LAUNCHES)
+            tr.train(3, 0.01, "adam", verbose_each=0)
+            counts.append((R.LAUNCHES - before[0], R.BWD_LAUNCHES - before[1]))
+            trs.append(tr)
+    finally:
+        pcfg.set_precision("fp32")
+    assert counts == [(12, 12)] * 3 and len(calls) == 12
+    for tr in trs[1:]:
+        assert len(tr.loss_curve) == 12
+        np.testing.assert_array_equal(tr.loss_curve[2::4], trs[0].loss_curve)
+        for p, q in zip(weights.tree_leaves(trs[0].params),
+                        weights.tree_leaves(tr.params)):
+            assert p.is_cuda and torch.equal(p, q)

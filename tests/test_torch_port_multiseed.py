@@ -8,7 +8,8 @@ fp64.
     battery's, and each replica against `Trainer(seed=seed + r)` on its
     own split;
   * a carried split call bitwise the single call (full batch and
-    minibatch), the kind and clip refusals, the full-batch fallback;
+    minibatch), the kind and clip refusals, the full-batch fallback, a
+    remat spec refused by the battery's training (not its evaluation);
   * `eval_multiseed` against JAX (logL, rmse; logL, acc) and against the
     Trainer's evaluation of each replica (coverage too, whose draws differ
     between the packages);
@@ -22,6 +23,8 @@ fp64.
     each Gram kernel once forward and once backward, whatever R is.
 Values at rtol 1e-8, atol 1e-10 (the same float64 math on both sides).
 """
+
+import dataclasses
 
 import jax
 import numpy as np
@@ -320,6 +323,29 @@ def test_eval_multiseed_matches_jax_and_the_trainer(case):
         got = tr._metrics_for_loader(tr.test_loader)
         for k in m_p:
             close(m_p[k][r], got[k])
+
+
+@pytest.mark.parametrize("entry", ["full_batch", "minibatch", "eval"])
+def test_battery_remat(entry):
+    """A battery's training refuses spec.remat by name; its evaluation,
+    which takes no gradient, gives the plain spec's metrics bitwise."""
+    _, spec_p, ps, X, Y = model("tgp")
+    sp = stacks(ps)[1]
+    rspec = dataclasses.replace(spec_p, remat=True)
+    if entry == "eval":
+        Ystd = np.ones((R, 1))
+        got = ms.eval_multiseed(rspec, sp, X, Y, Ystd, S_test=10,
+                                device="cpu")
+        want = ms.eval_multiseed(spec_p, sp, X, Y, Ystd, S_test=10,
+                                 device="cpu")
+        for k in want:
+            np.testing.assert_array_equal(got[k], want[k])
+        return
+    train, kw = ((ms.train_multiseed, {}) if entry == "full_batch" else
+                 (ms.train_multiseed_minibatch, dict(batch_size=15)))
+    with pytest.raises(NotImplementedError,
+                       match=r"spec\.remat in a battery .*ROADMAP Queue 3"):
+        train(rspec, sp, X, Y, 1, 0.01, device="cpu", **kw)
 
 
 def test_per_replica_clip_matches_a_per_model_clip():

@@ -636,6 +636,16 @@ def test_unported_options_raise_and_name_their_item(option, item, monkeypatch,
         np.testing.assert_allclose(tr.plateau_events[0]["rel_improve"], want,
                                    rtol=1e-12)
         return
+    if option in ("remat", "track_fn", "large_dataset"):
+        # item 21 is ported (held against the JAX package in
+        # tests/test_torch_port_hostloop.py)
+        return _item21_option(option)
+    if option == "dataset":
+        # item 20's large corpora are ported: a table that is not in the
+        # repo raises the JAX loader's actionable FileNotFoundError
+        with pytest.raises(FileNotFoundError, match="airline corpus missing"):
+            return_dataset("airline", 100)
+        return
     if option in ("natgrad_gamma", "natgrad_warmup"):
         # natural gradients are ported (held against the JAX Trainer in
         # tests/test_torch_port_natgrad.py): q(U) moves by them alone
@@ -677,6 +687,40 @@ def test_unported_options_raise_and_name_their_item(option, item, monkeypatch,
             tr.train(1, 0.01)
         else:
             return_dataset("airline", 100)
+
+
+def _item21_option(option):
+    """remat trains bit for bit as the plain spec does; a track_fn runs once
+    a step; a dataset over DEVICE_RESIDENT_BYTES trains through the host
+    loop, bit for bit as the device-resident minibatch path."""
+    plain = _small_trainer()
+    if option == "large_dataset":
+        plain.train_loader = DataLoader(ArrayDataset(
+            plain.train_loader.dataset.X, plain.train_loader.dataset.Y), 16)
+    plain.train(2, 0.01, verbose_each=0)
+    calls = []
+    tr = _small_trainer(track_fn=(lambda t: calls.append(1))
+                        if option == "track_fn" else None)
+    if option == "remat":
+        tr.spec = dataclasses.replace(tr.spec, remat=True)
+    if option == "large_dataset":
+        tr.train_loader = DataLoader(ArrayDataset(
+            tr.train_loader.dataset.X, tr.train_loader.dataset.Y), 16)
+        tr.DEVICE_RESIDENT_BYTES = 100
+    tr.train(2, 0.01, verbose_each=0)
+    for a, b in zip(weights.tree_leaves(plain.params),
+                    weights.tree_leaves(tr.params)):
+        if option == "track_fn":
+            # the host loop draws the loader's order each epoch (full batch
+            # keeps the first): the same rows, summed in another order
+            np.testing.assert_allclose(a.detach().numpy(),
+                                       b.detach().numpy(), **F64)
+        else:
+            assert torch.equal(a, b)
+    if option == "track_fn":
+        assert len(calls) == 2
+    # 40 rows in batches of 16: 3 steps an epoch, one curve entry each
+    assert len(tr.loss_curve) == (6 if option == "large_dataset" else 2)
 
 
 def _ported_runtime_option(option, tmp_path):

@@ -12,7 +12,9 @@ and bit-exact resume (`train.checkpoint`), the experiment CLI for SVGP,
 TGP, ID_TGP, WGP and DGP (`experiments.main`), the classification protocol
 (`experiments.classification_protocol`), the multi-seed battery
 (`train.multiseed`, `experiments.battery`) and the sweep runner
-(`experiments.sweep`), metric logging and profiling (`utils`), over every
+(`experiments.sweep`), metric logging and profiling (`utils`), the large
+corpora and their loaders (`data.large`, `data.native`), the Trainer's
+host loop and `spec.remat`, over every
 point-estimate and input-dependent flow, every kernel kind and likelihood,
 with the fused ARD-RBF Gram and its VJP as hand-written CUDA kernels
 (`ops/rbf_gram.py`, `csrc/`).  Kinds not yet ported raise

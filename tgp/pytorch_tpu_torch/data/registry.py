@@ -1,14 +1,14 @@
-"""Dataset registry: name -> data loaders + data_config, the UCI regression
-and classification part of the JAX package's `data/registry.py::
-return_dataset`.
-
-The large corpora (airline, year, rainfall, air quality) wait for ROADMAP
-Queue 1 item 20.
+"""Dataset registry: name -> data loaders + data_config, the port's copy of
+the JAX package's `data/registry.py::return_dataset`: the UCI regression
+and classification tables and the large corpora (`large.py`: airline,
+year, rainfall, and the partition corpora air_quality and
+rainfall_spatial, which take their split from `options`).
 """
 
 from __future__ import annotations
 
 from .batching import ArrayDataset, DataLoader
+from .large import LARGE_LOADERS
 from .uci import UCI_TABLE, load_uci_split
 from .uci_classification import CLASSIFICATION_LOADERS, NUM_CLASSES
 
@@ -24,25 +24,29 @@ def return_dataset(name: str, batch_size: int, use_validation=None,
     labels (JAX `data/registry.py:12-71`).
 
     options keys honoured: 'shuffle_train' (default True), 'generator_seed'
-    for the training loader's generator (default 0), 'normalize_y'.
+    for the training loader's generator (default 0), 'normalize_y'; for
+    air_quality and rainfall_spatial, whose `seed` selects the fold or
+    partition, their split options (`large.py`).  A table that is not under
+    the data root raises FileNotFoundError naming it.
     """
-    if name in UCI_TABLE:
-        is_classification = False
-    elif name in CLASSIFICATION_LOADERS:
-        is_classification = True
-    else:
-        raise NotImplementedError(
-            f"dataset {name!r} is not ported yet: the port reads the UCI "
-            "regression and classification tables only (ROADMAP Queue 1 "
-            "item 20)")
     options = dict(options or {})
     shuffle_train = bool(options.get("shuffle_train", True))
     gen_seed = options.get("generator_seed", 0)
-    if is_classification:
-        split = CLASSIFICATION_LOADERS[name](seed, use_validation)
-    else:
+    is_classification = False
+    if name in UCI_TABLE:
         split = load_uci_split(name, seed, use_validation,
                                normalize_y=options.get("normalize_y", True))
+    elif name in CLASSIFICATION_LOADERS:
+        split = CLASSIFICATION_LOADERS[name](seed, use_validation)
+        is_classification = True
+    elif name in ("airline", "year", "rainfall"):
+        split = LARGE_LOADERS[name](seed, use_validation)
+    elif name in ("air_quality", "rainfall_spatial"):
+        split = LARGE_LOADERS[name](seed, use_validation, options=options)
+    else:
+        raise NotImplementedError(
+            f"dataset {name!r} not available (add a loader to "
+            "data/registry.py)")
 
     loaders = [DataLoader(ArrayDataset(split["X_tr"], split["Y_tr"]),
                           batch_size, shuffle=shuffle_train, seed=gen_seed)]

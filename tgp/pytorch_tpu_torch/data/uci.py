@@ -17,8 +17,15 @@ from pathlib import Path
 
 import numpy as np
 
-_ASSET_ROOT = os.environ.get(
-    "TGP_DATA_ROOT", str(Path(__file__).resolve().parents[3] / "data_assets"))
+from .splits import random_split_validation
+
+_DEFAULT_ROOT = str(Path(__file__).resolve().parents[3] / "data_assets")
+
+
+def data_root() -> str:
+    """The root of the data tables: `TGP_DATA_ROOT`, read at each call, else
+    the repository's `data_assets/`."""
+    return os.environ.get("TGP_DATA_ROOT", _DEFAULT_ROOT)
 
 
 @dataclasses.dataclass
@@ -46,7 +53,7 @@ UCI_TABLE = {
 
 
 def _asset_path(task: str, fname: str) -> str:
-    return os.path.join(_ASSET_ROOT, task, "uci", fname)
+    return os.path.join(data_root(), task, "uci", fname)
 
 
 def _check_md5(path: str, md5: str | None):
@@ -64,18 +71,6 @@ def _load_csv(path: str, sep: str, header: bool) -> np.ndarray:
     delimiter = None if sep == r"\s+" else sep
     return np.loadtxt(path, delimiter=delimiter, skiprows=1 if header else 0,
                       dtype=np.float64, ndmin=2)
-
-
-def random_split_validation(X, Y, seed: int, n_val: int):
-    """Seeded permutation, last n_val rows held out (numpy's legacy global
-    seed, as in the JAX package's `data/splits.py`)."""
-    n = X.shape[0]
-    if n_val > n:
-        raise ValueError(f"n_val {n_val} > rows {n}")
-    np.random.seed(seed)
-    perm = np.random.permutation(n)
-    tr, va = perm[: n - n_val], perm[n - n_val:]
-    return X[tr], Y[tr], X[va], Y[va]
 
 
 def load_uci_split(name: str, seed: int, use_validation=None,

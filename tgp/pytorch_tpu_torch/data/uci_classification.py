@@ -23,7 +23,8 @@ import glob
 
 import numpy as np
 
-from .uci import _asset_path, random_split_validation, standard_normalize
+from .splits import random_split_validation
+from .uci import _asset_path, standard_normalize
 
 DOWNLOAD_URLS = {
     "avila": "https://archive.ics.uci.edu/ml/machine-learning-databases/00459/avila.zip",

@@ -47,6 +47,9 @@ quadrature points, S_test 100.
 
 `--checkpoint_dir DIR` writes the trained parameters to DIR/step_<epochs>
 (`train/checkpoint.py`) before the evaluation, as the JAX CLI does.
+`--dataset` takes the bundled UCI tables and, when their files are under
+the data root (`TGP_DATA_ROOT`), airline and year (`data/large.py`); a
+dataset over 512 MB trains through the Trainer's host loop.
 
 It runs on the card (`--platform gpu`, the default) or, when asked, on the
 CPU; without a card and without `--platform cpu` it exits non-zero.  Options the

@@ -17,8 +17,9 @@ JSONL line and the grid goes on, as the JAX runner does.
 
 It runs on the card (`--platform gpu`, the default) or, when asked, on the
 CPU; without a card and without `--platform cpu` it exits non-zero.  A
-dataset whose tables are not in `data_assets/` (the `large` suite's year
-and airline among them) is refused before the grid starts, naming them.
+dataset whose tables are not under the data root (`TGP_DATA_ROOT`, default
+`data_assets/`, which holds neither of the `large` suite's year and
+airline) is refused before the grid starts, naming them.
 """
 
 from __future__ import annotations

@@ -28,8 +28,12 @@ them; per-output flow architectures (`flow_per_output`) loop the outputs.
 Every likelihood is ported: Gaussian, Gaussian through the flow, the
 warped GP (an observation warp T), and classification (Bernoulli with a
 Gauss-CDF link, categorical MC softmax).  The public functions dispatch
-on `spec.layers` to the deep TGP (`models/deep.py`).  Not ported yet:
-`spec.remat` (ROADMAP Queue 1 item 21).
+on `spec.layers` to the deep TGP (`models/deep.py`).
+
+`spec.remat` recomputes `marginal_qf` and the warp in the backward pass
+(`torch.utils.checkpoint`), replaying the warp's draws (`_remat`): the same
+value and gradients, and one more launch of the Gram kernel's forward a
+step (2 forward, 1 backward for each rbf leaf).  A deep TGP has no remat.
 """
 
 from __future__ import annotations
@@ -149,15 +153,10 @@ class TGPSpec:
 
 
 def check_spec(spec: TGPSpec) -> None:
-    """Raise NotImplementedError for a part of `spec` not ported yet (only
-    `remat`), ValueError for a likelihood or flow step that cannot be
+    """Raise ValueError for a likelihood or flow step that cannot be
     evaluated.  A `DeepTGPSpec` is checked layer by layer."""
     if deep.is_deep(spec):
         return deep.check_spec(spec)
-    if spec.remat:
-        raise NotImplementedError("spec.remat (recomputation of marginal_qf and "
-                                  "the warp) is not ported yet (ROADMAP Queue 1 "
-                                  "item 21)")
     check_likelihood(spec.likelihood)
     flows = (spec.flow_per_output if spec.flow_per_output is not None
              else (spec.flow,))
@@ -492,6 +491,35 @@ def finalize_batch_norm(spec: TGPSpec, params, X):
 # ELBO
 # ===========================================================================
 
+def _remat(fn, rng, *args):
+    """fn(*args) under `torch.utils.checkpoint` (non-reentrant): its saved
+    activations are dropped and recomputed in the backward.  The recompute
+    replays the draws the first call made from `rng` (a `torch.Generator`
+    or `DeviceDraws`; `preserve_rng_state` keeps only the default
+    generators'), and then puts `rng` back where the backward found it, so
+    the stream moves as in a plain step: JAX's `jax.checkpoint` replays its
+    key in the same way.  A test's replacement of `hypernet._draw` is
+    called again in the recompute."""
+    from torch.utils.checkpoint import checkpoint
+
+    state = None if rng is None else rng.get_state()
+    calls = []
+
+    def run(*a):
+        if not calls or state is None:
+            calls.append(1)
+            return fn(*a)
+        now = rng.get_state()
+        rng.set_state(state)
+        try:
+            return fn(*a)
+        finally:
+            rng.set_state(now)
+
+    return checkpoint(run, *args, use_reentrant=False,
+                      preserve_rng_state=False)
+
+
 def elbo(spec: TGPSpec, params, X, Y, rng=None):
     """Evidence lower bound for one minibatch:
         ELBO = N/MB * ELL - KL(q(U)||p(U)) - KL_flows.
@@ -506,6 +534,7 @@ def elbo(spec: TGPSpec, params, X, Y, rng=None):
     the MC normals of f, then the hypernets' masks or noise as the warp
     reaches them (the JAX package keeps their keys apart with
     `fold_in(rng, 7919)`, JAX `models/tgp.py:555-563`).
+    With `spec.remat`, `marginal_qf` and the warp run under `_remat`.
     Returns (elbo, ell, kld), all 0-d tensors (maximise the elbo).
     A `DeepTGPSpec` dispatches to `deep.elbo`.
     """
@@ -513,7 +542,11 @@ def elbo(spec: TGPSpec, params, X, Y, rng=None):
         return deep.elbo(spec, params, X, Y, rng)
     MB = X.shape[0]
     X3 = _ensure_3d(spec, X)
-    mu, var, prior = _marginal_qf(spec, params, X3, diagonal=True)
+    if spec.remat:
+        mu, var, prior = _remat(
+            lambda x: _marginal_qf(spec, params, x, diagonal=True), None, X3)
+    else:
+        mu, var, prior = _marginal_qf(spec, params, X3, diagonal=True)
     kl = torch.sum(kld_qu(spec, params, prior))
     kl_flow = flows_kld(spec, params)
 
@@ -526,6 +559,9 @@ def elbo(spec: TGPSpec, params, X, Y, rng=None):
                                    lp["warp"]))
     else:
         warp = _make_warp(spec, params, X3, rng, stochastic=True, train=True)
+        if spec.remat and spec.has_flow:
+            inner = warp
+            warp = lambda f: _remat(inner, rng, f)          # noqa: E731
         if lik.kind == "gaussian_flow":
             ell = torch.sum(gaussian_flow_ell(lik, lp, Y.T, mu, var, warp))
         elif lik.kind == "bernoulli":

@@ -49,6 +49,9 @@ from .trainer import frozen_param_labels
 
 _MESH_MSG = ("a battery on a mesh (the replica axis sharded over cards) is "
              "not ported yet (ROADMAP Queue 1 item 20)")
+_REMAT_MSG = ("spec.remat in a battery (checkpointing under the replica "
+              "map) is not ported yet (ROADMAP Queue 3, remat beyond a "
+              "single-layer model's Trainer)")
 
 
 def stack_trees(trees):
@@ -213,6 +216,8 @@ class _Battery:
                  clip_norm, specs, carry, seed, natgrad_gamma, natgrad_force,
                  device):
         tgp_mod.check_spec(spec)
+        if getattr(spec, "remat", False):        # a deep spec has none
+            raise NotImplementedError(_REMAT_MSG)
         self.spec = spec
         self.R = R = X_stack.shape[0]
         _check_replica_axis(params_stack, R)

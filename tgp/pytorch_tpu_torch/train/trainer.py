@@ -13,6 +13,12 @@ package's `train/trainer.py`.
     epoch draws the loader's permutation, runs the full batches, then the
     remainder batch.  `loss_curve` gets one entry per epoch, the last full
     batch's.
+  * The host loop (a dataset over `DEVICE_RESIDENT_BYTES`, or a `track_fn`):
+    the loader's batches, the same rows in the same order as the minibatch
+    path's, are copied to the device one at a time (a plain synchronous
+    copy) and each takes one step; the curves get one entry per step, and
+    `track_fn(self)` runs after every step.  The rows stay on the device
+    until the curves are read (by the 50-epoch checks, or by `track_fn`).
   * Multi-phase schedules (percentages of the epochs, each with [lr(, wd),
     name] groups); the Adam family's moments carry across phases and train()
     calls while the kind is unchanged.
@@ -53,8 +59,7 @@ package's `train/trainer.py`.
     Trainer continues the run bit for bit.  `eval_device = "cpu"` computes
     the metrics on the host CPU, with the draws still from the generator.
 
-Not ported yet: meshes (ROADMAP Queue 1 item 20), `track_fn` and the host
-minibatch loop for datasets over 512 MB (item 21).
+Not ported yet: meshes (ROADMAP Queue 1 item 20).
 """
 
 from __future__ import annotations
@@ -115,11 +120,14 @@ class Trainer:
       seed: seed of the Trainer's `torch.Generator` (on `device`), which
         every training step's hypernet draws and the evaluation's samples
         come from.
+      track_fn: called as track_fn(trainer) after every training step; a
+        Trainer with one trains through the host loop.  Reading the curves
+        there copies the steps' rows to the host.
       device: where training runs; None means the card (raises without one).
     """
 
     #: datasets up to this many bytes are kept on the device for minibatch
-    #: training
+    #: training; larger ones train through the host loop
     DEVICE_RESIDENT_BYTES = 1 << 29
 
     def __init__(self, spec: TGPSpec, params, data_loaders, Y_std,
@@ -128,9 +136,6 @@ class Trainer:
         if mesh is not None:
             raise NotImplementedError("training on a mesh is not ported yet "
                                       "(ROADMAP Queue 1 item 20)")
-        if track_fn is not None:
-            raise NotImplementedError("track_fn is not ported yet (ROADMAP "
-                                      "Queue 1 item 21)")
         tgp_mod.check_spec(spec)
         self.spec = spec
         self.device = cfg.resolve_device(device)
@@ -145,11 +150,14 @@ class Trainer:
         self._Y_std_dev = self._put(self.Y_std)
         self.S_test = S_test
         self.validate_each = validate_each
+        self.track_fn = track_fn
         self._gen = torch.Generator(device=self.device)
         self._gen.manual_seed(int(seed))
-        self.loss_curve = []   # ELBO per step (full batch) or per epoch
-        self.ell_curve = []
-        self.kld_curve = []
+        # ELBO, ELL and KL per step (full batch, the host loop) or per epoch
+        # (minibatch), on the host; `_pending` holds (elbo, ell, kld) rows
+        # still on the device, appended when a curve is read
+        self._curves = ([], [], [])
+        self._pending = []
         #: evaluate with S_MC = S_test hypernet draws (MC-dropout or VI
         #: posterior of the flow) instead of the point-estimate flow
         self.fully_bayesian = False
@@ -177,9 +185,35 @@ class Trainer:
         self._natgrad_warmup = None
         self._ng_t = 0          # natgrad steps taken under the warmup ramp
 
+    @property
+    def loss_curve(self):
+        self._flush()
+        return self._curves[0]
+
+    @property
+    def ell_curve(self):
+        self._flush()
+        return self._curves[1]
+
+    @property
+    def kld_curve(self):
+        self._flush()
+        return self._curves[2]
+
+    def _flush(self):
+        """Append the pending rows to the curves with one copy."""
+        if self._pending:
+            rows, self._pending = self._pending, []
+            curves = torch.stack(rows).cpu().numpy()
+            for curve, col in zip(self._curves, curves.T):
+                curve.extend(col)
+
     # ------------------------------------------------------------------
     def _put(self, a, device=None):
-        return torch.as_tensor(np.asarray(a), dtype=self.dtype).to(
+        # numpy's own dtype first, then a cast: `as_tensor(..., dtype=)`
+        # converts a float64 array to float32 element by element,
+        # milliseconds for one batch of the host loop
+        return torch.as_tensor(np.asarray(a)).to(self.dtype).to(
             self.device if device is None else device)
 
     def _check_finite(self, where: str):
@@ -270,10 +304,8 @@ class Trainer:
 
     def _record(self, rows):
         """Append the (elbo, ell, kld) rows of a chunk with one copy."""
-        curves = torch.stack(rows).cpu().numpy()
-        self.loss_curve.extend(curves[:, 0])
-        self.ell_curve.extend(curves[:, 1])
-        self.kld_curve.extend(curves[:, 2])
+        self._pending.extend(rows)
+        self._flush()
 
     # ------------------------------------------------------------------
     def train(self, epochs: int, lr_ALL: float, opt: str = "adam",
@@ -338,7 +370,10 @@ class Trainer:
                                 if natgrad_warmup is not None else None)
         ep_done = 0
         ve = self.validate_each if self.validate_each else 10 ** 18
-        full_batch = len(self.train_loader) == 1
+        full_batch = len(self.train_loader) == 1 and self.track_fn is None
+        ds = self.train_loader.dataset
+        host_loop = (self.track_fn is not None or ds.X.nbytes + ds.Y.nbytes
+                     > self.DEVICE_RESIDENT_BYTES)
         for per, specs in zip(percentages, specifications):
             phase_epochs = int(epochs * per)
             if opt == "lbfgs":
@@ -357,7 +392,8 @@ class Trainer:
                 step = functools.partial(
                     self._step, self._build_phase_optimizer(
                         specs, lr_ALL, opt, frozen, clip_norm))
-            run = self._run_full_batch if full_batch else self._run_minibatch
+            run = (self._run_full_batch if full_batch else
+                   self._run_host_loop if host_loop else self._run_minibatch)
             ep_done = run(step, phase_epochs, epochs, ep_done, ve, verbose_each)
         if self.spec.has_bn_flow:
             # the hypernets' batch-norm statistics for evaluation, from the
@@ -404,10 +440,6 @@ class Trainer:
     def _run_minibatch(self, step, phase_epochs, epochs, ep_done, ve,
                        verbose_each):
         ds = self.train_loader.dataset
-        if ds.X.nbytes + ds.Y.nbytes > self.DEVICE_RESIDENT_BYTES:
-            raise NotImplementedError(
-                "minibatch training of a dataset over 512 MB (the host loop) is "
-                "not ported yet (ROADMAP Queue 1 item 21)")
         MB = self.train_loader.batch_size
         Xd, Yd = self._put(ds.X), self._put(ds.Y)
         n = ds.X.shape[0]
@@ -443,6 +475,35 @@ class Trainer:
                       f"({(time.time() - t0) / (ep + 1) * 1e3:.2f}ms/ep)")
             if evaluate:
                 print(f"|   eval @ {ep_done}: {self.compute_metrics()}")
+        return ep_done
+
+    def _run_host_loop(self, step, phase_epochs, epochs, ep_done, ve,
+                       verbose_each):
+        """The JAX Trainer's host loop: each of the loader's batches is
+        copied to the device and takes one step, then `track_fn(self)`.
+        The finite, plateau, verbose and evaluation checks run at the JAX
+        loop's epochs (evaluation every `validate_each` epochs)."""
+        t0 = time.time()
+        for ep in range(phase_epochs):
+            for X, Y in self.train_loader:
+                self._pending.append(step(self._put(X), self._put(Y)))
+                if self.track_fn is not None:
+                    self.track_fn(self)
+            ep_done += 1
+            if ep_done % 50 == 0:
+                self._flush()
+                self._check_finite(f"epoch {ep_done}")
+                self._check_plateau(ep_done, epochs)
+                self._maybe_recover_spec()
+            if verbose_each and ep_done % verbose_each == 0:
+                e, ell, kld = (float(c[-1]) for c in (
+                    self.loss_curve, self.ell_curve, self.kld_curve))
+                print(f"| epoch {ep_done}/{epochs}  ELBO {e:.4f} ELL "
+                      f"{ell:.4f} KLD {kld:.4f} "
+                      f"({(time.time() - t0) / max(ep, 1):.3f}s/ep)")
+            if self.validate_each and ep_done % self.validate_each == 0:
+                print(f"|   eval @ {ep_done}: {self.compute_metrics()}")
+        self._flush()
         return ep_done
 
     def _lbfgs_phase(self, frozen):
