@@ -15,8 +15,8 @@ on the CPU in fp64, and its checkpoints and refusals.
   * `--ckpt`: a run stopped by `--ckpt_stop_after` and resumed is bitwise
     the uninterrupted run; a checkpoint of another configuration is
     refused, and so is a completed one (as `tests/test_battery_ckpt.py`);
-  * `--mesh`, `--rng_impl rbg` and `--precision bf16` exit naming ROADMAP
-    Queue 1 item 20.
+  * `--mesh`, `--rng_impl rbg` and `--precision bf16` run (a mesh of more
+    than one rank needs torch.distributed.run, and says so).
 No Step* identity fit or ID_TGP anchor fit (2000 eager epochs a seed) runs
 here: `chip_smoke.py` runs those on the card.
 """
@@ -204,10 +204,33 @@ def test_battery_ckpt_refuses_another_config_and_a_completed_one(tmp_path):
 
 @pytest.mark.parametrize("flags", [["--mesh", "2"], ["--rng_impl", "rbg"],
                                    ["--precision", "bf16"]])
-def test_battery_refuses_what_waits_for_item_20(flags):
-    with pytest.raises(SystemExit, match="ROADMAP Queue 1 item 20"):
-        pbat.main(["--model", "SVGP", "--dataset", "boston",
-                   "--num_inducing", "5", "--platform", "cpu", *flags])
+def test_battery_refuses_what_waits_for_item_20(flags, tmp_path):
+    """Item 20 is ported: each flag runs.  A --mesh of one rank runs in the
+    process, bitwise the battery without one; of more ranks, it needs
+    torch.distributed.run and names the command.  --rng_impl rbg and
+    --precision bf16 train (against the JAX battery in
+    tests/test_torch_port_precision.py and _rng.py)."""
+    from tgp.pytorch_tpu_torch.ops import kernels as pK
+
+    argv = ["--model", "SVGP", "--dataset", "boston", "--num_inducing", "5",
+            "--seeds", "1-2", "--epochs", "5", "--platform", "cpu"]
+    plain = pbat.main(argv)
+    try:
+        if flags[0] == "--mesh":
+            with pytest.raises(SystemExit, match="torch.distributed.run "
+                               "--nproc_per_node 2"):
+                pbat.main(argv + flags)
+            got = pbat.main(argv + ["--mesh", "1"])
+        else:
+            pK.BF16_GRAMS = 0
+            got = pbat.main(argv + flags)
+            assert (pK.BF16_GRAMS > 0) == (flags[1] == "bf16")
+    finally:
+        pcfg.set_rng_impl("threefry2x32")
+    curves = np.asarray(got.curves["elbo"])
+    assert curves.shape == (5, 2) and np.isfinite(curves).all()
+    if flags[1] != "bf16":         # SVGP draws nothing: the same run
+        np.testing.assert_array_equal(curves, plain.curves["elbo"])
 
 
 def test_battery_needs_a_card_unless_asked_for_the_cpu(monkeypatch):
@@ -215,6 +238,9 @@ def test_battery_needs_a_card_unless_asked_for_the_cpu(monkeypatch):
     with pytest.raises(SystemExit, match="no CUDA device"):
         pbat.main(["--model", "SVGP", "--dataset", "boston",
                    "--num_inducing", "5"])
-    with pytest.raises(NotImplementedError, match="item 20"):
-        pms.train_multiseed(None, {}, np.zeros((1, 2, 1)), None, 1, 0.01,
-                            mesh=object())
+    # the battery's own entry point too (on a mesh too: ported, see
+    # tests/test_torch_port_rng.py)
+    from tgp.pytorch_tpu_torch import weights
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        pms.train_multiseed(weights.flagship_spec(2, M=1), {},
+                            np.zeros((1, 2, 4)), np.zeros((1, 2, 1)), 1, 0.01)

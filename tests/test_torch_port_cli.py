@@ -237,6 +237,18 @@ def test_unported_models_and_flags_refuse(flags, item):
         args = pmain.parse_args(flags + ARGV)
         assert pmain.refusal(args) is None and args.checkpoint_dir == "ckpt"
         return
+    if item == "item 20":
+        # item 20 is ported: --precision bf16 and --rng_impl rbg run (held
+        # against the JAX CLI in tests/test_torch_port_precision.py and
+        # _rng.py), and a --mesh of more than one rank needs the launcher,
+        # whose command the CLI names (tests/test_torch_port_mesh.py runs it)
+        args = pmain.parse_args(flags + ARGV)
+        assert pmain.refusal(args) is None
+        if "--mesh" in flags:
+            with pytest.raises(SystemExit, match="torch.distributed.run "
+                               "--nproc_per_node 8"):
+                pmain.run(args)
+        return
     if item in ("item 18", "item 19"):
         # items 18 and 19 are ported: the CLI takes the solve levers (run
         # against the JAX CLI in tests/test_torch_port_plateau.py), --model
@@ -256,7 +268,10 @@ def test_cli_exits_non_zero_naming_the_item():
         [sys.executable, "-m", "tgp.pytorch_tpu_torch.experiments.main",
          "--model", "TGP", "--mesh", "4x2"] + ARGV, cwd=REPO, env=env,
         capture_output=True, text=True, timeout=300)
-    assert res.returncode != 0 and "item 20" in res.stderr
+    # a 4x2 mesh is 8 ranks: without torch.distributed.run the CLI exits
+    # naming the command that starts them
+    assert res.returncode != 0
+    assert "torch.distributed.run --nproc_per_node 8" in res.stderr
 
 
 def test_cli_needs_a_card_unless_asked_for_the_cpu():

@@ -1087,3 +1087,100 @@ def test_host_loop_is_bitwise_the_device_resident_path(dev):
         for p, q in zip(weights.tree_leaves(trs[0].params),
                         weights.tree_leaves(tr.params)):
             assert p.is_cuda and torch.equal(p, q)
+
+
+def _kin8nm_trainer(device):
+    """The flagship's model on kin8nm split 1 (7372 rows, Dx=8, M=100,
+    Z = the first 100 rows): its bf16 K_zz is positive definite."""
+    import dataclasses
+
+    from tgp.pytorch_tpu_torch.data import return_dataset
+    from tgp.pytorch_tpu_torch.train import Trainer
+
+    loaders, d = return_dataset("kin8nm", 10000, seed=1)
+    X = d["X_tr"]
+    spec = dataclasses.replace(weights.flagship_spec(X.shape[0], Dx=8),
+                               min_var=1e-8)
+    params = weights.flagship_init(spec, X, variance_scale=1e-5,
+                                   device=device)
+    return Trainer(spec, params, loaders, d["Y_std"], device=device)
+
+
+# 10x the gap first measured (1.19e-3, on an NVIDIA H100 80GB HBM3 at 700 W):
+# bf16 runs part as far as bf16 rounding carries them
+BF16_CURVE_LIMIT = 1.2e-2
+
+
+def test_bf16_routes_on_a_step_and_two_serving_buckets(dev):
+    """bf16: a flagship step is 1 forward launch (K_xz, 861,100 entries),
+    1 backward call and 1 bf16-route Gram (K_zz); a request at bucket 256
+    launches nothing (2 bf16 Grams), at 4096 once (1 bf16 Gram)."""
+    from tgp.pytorch_tpu_torch.ops import kernels as K
+
+    pcfg.set_precision("bf16")
+    try:
+        tr = bench.flagship_trainer(dev)
+        tr.nan_guard = False            # its bf16 K_zz is not PD (NaN)
+        R.LAUNCHES = R.BWD_LAUNCHES = K.BF16_GRAMS = 0
+        tr.train(3, bench.LR, "adam", verbose_each=0)
+        assert (R.LAUNCHES, R.BWD_LAUNCHES, K.BF16_GRAMS) == (3, 3, 3)
+        kin = _kin8nm_trainer(dev)
+        pred = Predictor(kin.spec, weights.tree_map(lambda t: t.detach(),
+                                                    kin.params),
+                         buckets=(256, 4096), device=dev)
+        X = kin.train_loader.dataset.X
+        for n, want in ((200, (0, 0, 2)), (3000, (1, 0, 1))):
+            R.LAUNCHES = R.BWD_LAUNCHES = K.BF16_GRAMS = 0
+            out = pred.predict(X[:n])
+            assert (R.LAUNCHES, R.BWD_LAUNCHES, K.BF16_GRAMS) == want
+            assert np.isfinite(out["mean"]).all()
+    finally:
+        pcfg.set_precision("fp32")
+
+
+def test_bf16_trainer_on_the_card_matches_the_cpu(dev):
+    """kin8nm's model, 10 bf16 epochs on the card and the CPU: the ELBO
+    curves within BF16_CURVE_LIMIT of the CPU's largest entry."""
+    pcfg.set_precision("bf16")
+    try:
+        curves = []
+        for d in (dev, "cpu"):
+            tr = _kin8nm_trainer(d)
+            tr.train(10, bench.LR, "adam", verbose_each=0)
+            curves.append(np.asarray(tr.loss_curve, np.float64))
+    finally:
+        pcfg.set_precision("fp32")
+    assert np.isfinite(curves[0]).all()
+    gap = np.abs(curves[0] - curves[1]).max() / np.abs(curves[1]).max()
+    print(f"bf16 kin8nm 10 epochs, card against CPU: {gap:.3e}")
+    assert gap <= BF16_CURVE_LIMIT, gap
+
+
+def test_one_by_one_nccl_mesh_is_bitwise_the_run_without(dev, tmp_path):
+    """A 1x1 mesh under NCCL (one process): 10 fp64 flagship epochs with
+    the same bits and the same launches as the Trainer without a mesh."""
+    from tgp.pytorch_tpu_torch.parallel import make_mesh, multihost
+    from tgp.pytorch_tpu_torch.train import Trainer
+
+    pcfg.set_precision("fp64")
+    multihost.initialize(f"file://{tmp_path}/store", 1, 0, platform="gpu")
+    try:
+        assert torch.distributed.get_backend() == "nccl"
+        mesh = make_mesh(1, 1)
+        runs = []
+        for m in (None, mesh):
+            tr = bench.flagship_trainer(dev)
+            if m is not None:
+                tr = Trainer(tr.spec, tr.params,
+                             [tr.train_loader, tr.test_loader], tr.Y_std,
+                             mesh=m)
+            R.LAUNCHES = R.BWD_LAUNCHES = 0
+            tr.train(10, bench.LR, "adam", verbose_each=0)
+            runs.append((tr, (R.LAUNCHES, R.BWD_LAUNCHES)))
+    finally:
+        multihost.shutdown()
+        pcfg.set_precision("fp32")
+    assert runs[0][1] == runs[1][1] == (10, 10)
+    for a, b in zip(weights.tree_leaves(runs[0][0].params),
+                    weights.tree_leaves(runs[1][0].params)):
+        assert torch.equal(a, b)

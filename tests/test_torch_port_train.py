@@ -463,6 +463,22 @@ def _small_trainer(**kw):
                    d["Y_std"], device="cpu", **kw)
 
 
+def _mesh_option(tmp_path):
+    from tgp.pytorch_tpu_torch.parallel import make_mesh, multihost
+
+    multihost.initialize(f"file://{tmp_path}/store", 1, 0, platform="cpu")
+    try:
+        plain, meshed = _small_trainer(), _small_trainer(mesh=make_mesh(1, 1))
+        plain.train(3, 0.01, verbose_each=0)
+        meshed.train(3, 0.01, verbose_each=0)
+        for a, b in zip(weights.tree_leaves(plain.params),
+                        weights.tree_leaves(meshed.params)):
+            assert torch.equal(a, b)
+        assert meshed.loss_curve == plain.loss_curve
+    finally:
+        multihost.shutdown()
+
+
 def test_trainer_default_device_raises_without_cuda():
     if torch.cuda.is_available():
         pytest.skip("this host has a card; the default device is valid here")
@@ -636,6 +652,11 @@ def test_unported_options_raise_and_name_their_item(option, item, monkeypatch,
         np.testing.assert_allclose(tr.plateau_events[0]["rel_improve"], want,
                                    rtol=1e-12)
         return
+    if option == "mesh":
+        # item 20's meshes are ported (held against the JAX package in
+        # tests/test_torch_port_mesh.py): a 1x1 mesh trains bitwise as the
+        # Trainer without one
+        return _mesh_option(tmp_path)
     if option in ("remat", "track_fn", "large_dataset"):
         # item 21 is ported (held against the JAX package in
         # tests/test_torch_port_hostloop.py)

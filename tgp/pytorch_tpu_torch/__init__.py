@@ -6,7 +6,7 @@ PyTorch idiom inside: plain functions on tensors, dict parameter trees, an
 explicit `device` and explicit `torch.Generator`s.  It imports neither JAX
 nor anything of the JAX package.
 
-Ported so far: serving and training (`serve.Predictor`, `train.Trainer`,
+Ported: serving and training (`serve.Predictor`, `train.Trainer`,
 with Adam, SGD, natural gradients and L-BFGS, `train.lbfgs`), checkpoints
 and bit-exact resume (`train.checkpoint`), the experiment CLI for SVGP,
 TGP, ID_TGP, WGP and DGP (`experiments.main`), the classification protocol
@@ -14,11 +14,12 @@ TGP, ID_TGP, WGP and DGP (`experiments.main`), the classification protocol
 (`train.multiseed`, `experiments.battery`) and the sweep runner
 (`experiments.sweep`), metric logging and profiling (`utils`), the large
 corpora and their loaders (`data.large`, `data.native`), the Trainer's
-host loop and `spec.remat`, over every
-point-estimate and input-dependent flow, every kernel kind and likelihood,
-with the fused ARD-RBF Gram and its VJP as hand-written CUDA kernels
-(`ops/rbf_gram.py`, `csrc/`).  Kinds not yet ported raise
-NotImplementedError naming their ROADMAP item.
+host loop and `spec.remat`, 'bf16' precision and the 'rbg' stream
+(`config`), and dp x ty meshes of ranks (`parallel`) through the Trainer,
+the battery and the CLIs, over every point-estimate and input-dependent
+flow, every kernel kind and likelihood, with the fused ARD-RBF Gram and its
+VJP as hand-written CUDA kernels (`ops/rbf_gram.py`, `csrc/`): everything
+the JAX package does.
 """
 
 from . import config

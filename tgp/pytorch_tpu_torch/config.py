@@ -7,7 +7,20 @@ everything else is passed explicitly.
 Precision policy:
   * 'fp64' — float64 everywhere, 100 quadrature points (reference parity).
   * 'fp32' — float32 everywhere; the default on the card.
-  * 'bf16' is not ported yet (ROADMAP Queue 1 item 20).
+  * 'bf16' — parameters and statistics in float32; the cross term of the
+    Gram's squared distances takes bfloat16 operands with float32
+    accumulation (`matmul_dtype`, `ops/kernels.py::_sq_dist`) where the
+    JAX package's TPU program computes the Gram with XLA ops: an rbf Gram
+    below 2^18 entries, and every other stationary kernel.  A larger rbf
+    Gram takes the fp32 kernel, as the TPU program takes its fp32 Pallas
+    kernel.  TF32 stays off in every mode.
+
+Random streams (`set_rng_impl`, `make_rng`): every generator the port makes
+is a `torch.Generator` (Philox on the card); 'threefry2x32' (the default)
+seeds it with the seed itself, 'rbg' with a second, fixed derivation of the
+seed.  The two give the same distributions and different streams, as the
+JAX package's two implementations do; on the card both are the same
+generator, so 'rbg' is no faster here.
 
 Solve precision (`TGPSpec.solve_precision`), fp32 on the card only: the
 factor's applications in `marginal_qf` run as 'highest' (true fp32), 'high'
@@ -27,9 +40,13 @@ from __future__ import annotations
 
 import contextlib
 
+import numpy as np
 import torch
 
 _PRECISION = "fp32"
+
+#: the stream of training-time draws: 'threefry2x32' or 'rbg'
+rng_impl = "threefry2x32"
 
 #: number of Gauss-Hermite nodes (the JAX package defaults to 100 everywhere)
 quad_points = 100
@@ -43,17 +60,16 @@ JITTER_F64 = 1e-8
 
 
 def set_precision(mode: str) -> None:
-    """Set process-wide precision mode ('fp64' | 'fp32').
+    """Set process-wide precision mode ('fp64' | 'fp32' | 'bf16').
 
     Hopper counterpart of the TPU matmul rule: the K_zz Gram and its
     Cholesky must run in true fp32, so TF32 stays off for both cuBLAS
-    matmuls and cuDNN, and float32 matmul precision is 'highest'.
+    matmuls and cuDNN, and float32 matmul precision is 'highest', in every
+    mode; 'bf16' rounds only the Gram cross term's operands
+    (`matmul_dtype`).
     """
     global _PRECISION, quad_points
-    if mode == "bf16":
-        raise NotImplementedError(
-            "bf16 precision is not ported yet (ROADMAP Queue 1 item 20)")
-    if mode not in ("fp64", "fp32"):
+    if mode not in ("fp64", "fp32", "bf16"):
         raise ValueError(f"unknown precision mode {mode!r}")
     _PRECISION = mode
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -83,6 +99,41 @@ def precision() -> str:
 def default_dtype() -> torch.dtype:
     """dtype used for parameters and statistics."""
     return torch.float64 if _PRECISION == "fp64" else torch.float32
+
+
+def matmul_dtype() -> torch.dtype:
+    """dtype of the Gram cross term's operands (bf16 in 'bf16' mode)."""
+    return torch.bfloat16 if _PRECISION == "bf16" else default_dtype()
+
+
+def set_rng_impl(impl: str) -> None:
+    """Select the stream of the generators that `make_rng` makes:
+    'threefry2x32' (the default) or 'rbg'.  Set it before building a
+    Trainer or a battery; a Trainer's checkpoint records its own."""
+    global rng_impl
+    if impl not in ("threefry2x32", "rbg"):
+        raise ValueError(f"unknown rng impl {impl!r} "
+                         "(expected 'threefry2x32' or 'rbg')")
+    rng_impl = impl
+
+
+def stream_seed(seed: int, impl: str | None = None) -> int:
+    """The seed that `make_rng` gives the generator: `seed` itself under
+    'threefry2x32', and under 'rbg' the first 63 bits of
+    numpy's SeedSequence((seed, 1))."""
+    impl = impl or rng_impl
+    if impl == "threefry2x32":
+        return int(seed)
+    state = np.random.SeedSequence((int(seed), 1)).generate_state(1, np.uint64)
+    return int(state[0]) & (2 ** 63 - 1)
+
+
+def make_rng(seed: int, device=None) -> torch.Generator:
+    """A `torch.Generator` on `device` (None: the card) seeded under the
+    configured `rng_impl`."""
+    gen = torch.Generator(device=resolve_device(device))
+    gen.manual_seed(stream_seed(seed))
+    return gen
 
 
 def jitter_value(dtype) -> float:

@@ -6,14 +6,15 @@ of the repo's `experiments/battery.py` (the JAX package's).
     python -m tgp.pytorch_tpu_torch.experiments.battery \\
         --model {SVGP,TGP,ID_TGP,WGP,DGP} --dataset <name> \\
         --num_inducing M [--seeds 1-10] [--epochs 15000] \\
-        [--precision fp32|fp64] [--platform gpu|cpu] [--batch_size B] \\
+        [--precision fp32|fp64|bf16] [--platform gpu|cpu] [--batch_size B] \\
         [--arch NAME:NB[:NS]] [--num_blocks NB] [--hold_kernel_epochs E] \\
         [--natgrad GAMMA [--natgrad_warmup K] [--natgrad_force]] \\
         [--clip_norm C] [--fast_solves] [--solve_precision P] \\
         [--layers L] [--dgp_flow] [--warp_arch SAL|log_exp] \\
         [--nnet_inference MC_dropout|mean_field_gaussian] [--S_test S] \\
         [--train_seed S] [--out FILE] [--save_curves NPY] \\
-        [--ckpt FILE [--ckpt_each E]]
+        [--ckpt FILE [--ckpt_each E]] [--rng_impl threefry2x32|rbg] \\
+        [--mesh DP]
 
 Each replica has its own split, z-scoring, k-means inducing points and
 parameters; a Step* table arch gets each split's identity fit and ID_TGP
@@ -26,16 +27,22 @@ atomic `os.replace`) after each; a resumed run is bitwise the
 uninterrupted one, and a checkpoint of another configuration, or a
 completed one, is refused.
 
+`--mesh DP` cuts the seed axis over DP ranks (`train/multiseed.py`), one
+process a device, started by `python -m torch.distributed.run
+--nproc_per_node DP -m tgp.pytorch_tpu_torch.experiments.battery ...`;
+every rank prepares the cell, and only rank 0 prints and writes.
+`--rng_impl rbg` and `--precision bf16` are the experiment CLI's.
+
 It runs on the card (`--platform gpu`, the default) or, when asked, on the
 CPU; without a card and without `--platform cpu` it exits non-zero.
-`--mesh`, `--rng_impl rbg` and `--precision bf16` exit naming ROADMAP
-Queue 1 item 20.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
+import io
 import json
 import os
 import time
@@ -110,13 +117,9 @@ def parse_args(argv=None):
 
 
 def refusal(args):
-    """The message for an option the port lacks, naming its ROADMAP
-    item, or None."""
-    for on, flag in ((args.mesh is not None, "--mesh"),
-                     (args.rng_impl == "rbg", "--rng_impl rbg"),
-                     (args.precision == "bf16", "--precision bf16")):
-        if on:
-            return f"{flag} is not ported yet (ROADMAP Queue 1 item 20)"
+    """The message for a malformed option, or None."""
+    if args.mesh is not None and not args.mesh.isdigit():
+        return f"--mesh takes the dp size DP, e.g. 8 (got {args.mesh!r})"
     return None
 
 
@@ -396,7 +399,25 @@ def run(args) -> Battery:
     msg = refusal(args)
     if msg:
         raise SystemExit(msg)
+    if args.mesh is None:
+        return _run(args, None)
+    from ..parallel import multihost
 
+    dp = int(args.mesh)
+    mesh = multihost.join_mesh(dp, 1, args.platform,
+                               "tgp.pytorch_tpu_torch.experiments.battery")
+    try:
+        # only rank 0 prints
+        with (contextlib.redirect_stdout(io.StringIO()) if mesh.rank
+              else contextlib.nullcontext()):
+            print(f"==== battery on a {dp}-way dp mesh (seed axis sharded) "
+                  "====", flush=True)
+            return _run(args, mesh)
+    finally:
+        multihost.shutdown()
+
+
+def _run(args, mesh) -> Battery:
     from .. import config as cfg
     from ..models import tgp as M
     from ..ops import rbf_gram as RG
@@ -404,8 +425,14 @@ def run(args) -> Battery:
     from ..train.metrics import replica_outliers
     from . import exp_config as EC
 
+    from .main import BF16_WARNING
+
     cfg.set_precision(args.precision)
-    device = device_of(args)
+    cfg.set_rng_impl(args.rng_impl)
+    if args.precision == "bf16":
+        print(BF16_WARNING, flush=True)
+    device = device_of(args) if mesh is None else mesh.device
+    writer = mesh is None or mesh.rank == 0
     seeds = parse_seeds(args.seeds)
     R = len(seeds)
 
@@ -440,7 +467,7 @@ def run(args) -> Battery:
                   clip_norm=args.clip_norm, verbose_each=verbose,
                   natgrad_gamma=args.natgrad,
                   natgrad_warmup=args.natgrad_warmup,
-                  natgrad_force=args.natgrad_force, device=device)
+                  natgrad_force=args.natgrad_force, mesh=mesh, device=device)
     hold = 0
     if is_class:
         if args.ckpt is not None:
@@ -492,14 +519,17 @@ def run(args) -> Battery:
             train_s += time.time() - t0
             done += n
             curve_parts.append(cv)
-            tmp = args.ckpt + ".tmp"
-            torch.save({"meta": ckpt_meta, "epochs_done": done,
-                        "train_s": train_s, "flow_spec": flow_spec,
-                        "params": _to(params, "cpu"),
-                        "carry": dict(carry, opt_state=_to(
-                            carry["opt_state"], "cpu")),
-                        "curves": curve_parts}, tmp)
-            os.replace(tmp, args.ckpt)      # atomic: never a torn checkpoint
+            if writer:
+                tmp = args.ckpt + ".tmp"
+                torch.save({"meta": ckpt_meta, "epochs_done": done,
+                            "train_s": train_s, "flow_spec": flow_spec,
+                            "params": _to(params, "cpu"),
+                            "carry": dict(carry, opt_state=_to(
+                                carry["opt_state"], "cpu")),
+                            "curves": curve_parts}, tmp)
+                os.replace(tmp, args.ckpt)  # atomic: never a torn checkpoint
+            if mesh is not None and mesh.world > 1:
+                torch.distributed.barrier()
             print(f"checkpoint: {done}/{args.epochs} epochs -> {args.ckpt} "
                   f"({train_s:.1f}s trained)", flush=True)
             saves += 1
@@ -510,7 +540,7 @@ def run(args) -> Battery:
                   for k in curve_parts[0]}
     calls.append((RG.LAUNCHES, RG.BWD_LAUNCHES))
 
-    if args.save_curves:
+    if args.save_curves and writer:
         # (T, R) from training, stored (R, T)
         elbo = np.asarray(curves["elbo"]).T
         np.save(args.save_curves, elbo)
@@ -530,7 +560,7 @@ def run(args) -> Battery:
                                     cell.Y_std,
                                     S_test=args.S_test,
                                     fully_bayesian=fully_bayesian,
-                                    device=device)
+                                    mesh=mesh, device=device)
         calls.append((RG.LAUNCHES, RG.BWD_LAUNCHES))
         lines = []
 
@@ -604,7 +634,7 @@ def run(args) -> Battery:
                 "nll_mean": round(float(nll.mean()), 4),
                 "rmse_mean": round(float(rmse.mean()), 4),
                 "outlier_seeds": flagged}
-        if args.out:
+        if args.out and writer:
             with open(args.out, "a") as f:
                 f.write(json.dumps(record) + "\n")
         reports.append((tag, metrics, lines, record))

@@ -9,7 +9,8 @@
         [--fast_solves] [--solve_precision highest|high|default] \\
         [--solve_warmup_epochs E] [--plateau_guard [warn|raise|recover]] \\
         [--natgrad GAMMA [--natgrad_warmup K] [--natgrad_force]] \\
-        [--layers L] [--dgp_flow] [--S_train S] [--checkpoint_dir DIR]
+        [--layers L] [--dgp_flow] [--S_train S] [--checkpoint_dir DIR] \
+        [--rng_impl threefry2x32|rbg] [--mesh DPxTY]
 
 It takes the flags of the repo's `experiments/main.py` (the JAX package's
 CLI) and does what that CLI does for these models: the UCI split, k-means
@@ -51,15 +52,25 @@ quadrature points, S_test 100.
 the data root (`TGP_DATA_ROOT`), airline and year (`data/large.py`); a
 dataset over 512 MB trains through the Trainer's host loop.
 
+`--precision bf16` keeps the parameters in fp32 and gives the Gram cross
+term bf16 operands (`config.py`), with the JAX CLI's warning that full-bf16
+training is unstable; `--rng_impl rbg` picks the second seed derivation of
+the Trainer's generator.  `--mesh DPxTY` trains on a dp x ty mesh of ranks
+(`parallel/mesh.py`), one process a device, started by
+`python -m torch.distributed.run --nproc_per_node DP*TY -m
+tgp.pytorch_tpu_torch.experiments.main ...` (a 1x1 mesh runs in a plain
+process); only rank 0 prints and writes.
+
 It runs on the card (`--platform gpu`, the default) or, when asked, on the
-CPU; without a card and without `--platform cpu` it exits non-zero.  Options the
-port does not have yet exit non-zero and name their ROADMAP item.
+CPU; without a card and without `--platform cpu` it exits non-zero.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
+import io
 import time
 
 import numpy as np
@@ -118,17 +129,26 @@ def parse_args(argv=None):
 
 
 def refusal(args):
-    """The message for a model or option the port lacks, naming its
-    ROADMAP Queue 1 item, or None."""
-    levers = [
-        (args.precision == "bf16", "--precision bf16", 20),
-        (args.mesh is not None, "--mesh", 20),
-        (args.rng_impl == "rbg", "--rng_impl rbg", 20),
-    ]
-    for on, flag, item in levers:
-        if on:
-            return f"{flag} is not ported yet (ROADMAP Queue 1 item {item})"
+    """The message for a malformed option, or None."""
+    if args.mesh is not None:
+        try:
+            parse_mesh(args.mesh)
+        except ValueError:
+            return f"--mesh takes DPxTY, e.g. 4x2 (got {args.mesh!r})"
     return None
+
+
+def parse_mesh(text):
+    """'DPxTY' -> (dp, ty)."""
+    dp, ty = (int(v) for v in text.lower().split("x"))
+    return dp, ty
+
+
+BF16_WARNING = (
+    "WARNING: full-bf16 TRAINING is measured unstable in the JAX package "
+    "(power M=100 NaNs every parameter group by epoch ~2000 on its TPU); the "
+    "nan_guard will stop the run when it happens.  For a reduced-precision "
+    "lever use --precision fp32 with --solve_precision high|default.")
 
 
 @dataclasses.dataclass
@@ -178,7 +198,25 @@ def run(args) -> Run:
     msg = (dgp_refusal(args) if args.model == "DGP" else None) or refusal(args)
     if msg:
         raise SystemExit(msg)
+    if args.mesh is None:
+        return _run(args, None)
+    from ..parallel import multihost
 
+    dp, ty = parse_mesh(args.mesh)
+    mesh = multihost.join_mesh(dp, ty, args.platform,
+                               "tgp.pytorch_tpu_torch.experiments.main")
+    try:
+        # only rank 0 prints
+        with (contextlib.redirect_stdout(io.StringIO()) if mesh.rank
+              else contextlib.nullcontext()):
+            print(f"==== training on a {dp}x{ty} (dp x ty) device mesh ====",
+                  flush=True)
+            return _run(args, mesh)
+    finally:
+        multihost.shutdown()
+
+
+def _run(args, mesh) -> Run:
     from .. import config as cfg
     from ..data import kmeans_centers, return_dataset
     from ..flows import generators as G
@@ -196,7 +234,12 @@ def run(args) -> Run:
     from .exp_config import return_hyperparams
 
     cfg.set_precision(args.precision)
-    if args.platform == "cpu":
+    cfg.set_rng_impl(args.rng_impl)
+    if args.precision == "bf16":
+        print(BF16_WARNING, flush=True)
+    if mesh is not None:
+        device = mesh.device
+    elif args.platform == "cpu":
         device = torch.device("cpu")
     elif torch.cuda.is_available():
         device = cfg.default_device()
@@ -325,7 +368,7 @@ def run(args) -> Run:
         spec = dataclasses.replace(spec, fast_solves=False,
                                    solve_precision="highest")
     trainer = Trainer(spec, params, loaders, dc["Y_std"], S_test=args.S_test,
-                      seed=args.train_seed, device=device)
+                      seed=args.train_seed, mesh=mesh, device=device)
     plateau_action = args.plateau_guard
     if (spec_final.fast_solves and spec_final.solve_precision != "highest"
             and warmup == 0 and not plateau_action):
@@ -357,7 +400,7 @@ def run(args) -> Run:
                       verbose_each=args.verbose_each, **natgrad)
     train_time = time.time() - t0
     calls = [(R.LAUNCHES, R.BWD_LAUNCHES)]
-    if args.checkpoint_dir:
+    if args.checkpoint_dir and (mesh is None or mesh.rank == 0):
         save_checkpoint(args.checkpoint_dir, trainer.params, step=args.epochs)
     m = trainer.compute_metrics()
     calls.append((R.LAUNCHES, R.BWD_LAUNCHES))

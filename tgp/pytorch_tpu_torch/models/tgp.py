@@ -520,7 +520,7 @@ def _remat(fn, rng, *args):
                       preserve_rng_state=False)
 
 
-def elbo(spec: TGPSpec, params, X, Y, rng=None):
+def elbo(spec: TGPSpec, params, X, Y, rng=None, block=None):
     """Evidence lower bound for one minibatch:
         ELBO = N/MB * ELL - KL(q(U)||p(U)) - KL_flows.
 
@@ -535,6 +535,10 @@ def elbo(spec: TGPSpec, params, X, Y, rng=None):
     reaches them (the JAX package keeps their keys apart with
     `fold_in(rng, 7919)`, JAX `models/tgp.py:555-563`).
     With `spec.remat`, `marginal_qf` and the warp run under `_remat`.
+    `block` (a mesh rank's share, `parallel/mesh.py`) cuts the GP part
+    (marginals and KL(q(U)||p(U))) to the rank's rows and outputs and joins
+    the whole marginals and KL across the mesh before the likelihood; None
+    computes the whole batch.
     Returns (elbo, ell, kld), all 0-d tensors (maximise the elbo).
     A `DeepTGPSpec` dispatches to `deep.elbo`.
     """
@@ -542,13 +546,18 @@ def elbo(spec: TGPSpec, params, X, Y, rng=None):
         return deep.elbo(spec, params, X, Y, rng)
     MB = X.shape[0]
     X3 = _ensure_3d(spec, X)
+    gp_spec, gp_params, gp_X = (spec, params, X3) if block is None else \
+        block.cut(spec, params, X)
     if spec.remat:
         mu, var, prior = _remat(
-            lambda x: _marginal_qf(spec, params, x, diagonal=True), None, X3)
+            lambda x: _marginal_qf(gp_spec, gp_params, x, diagonal=True),
+            None, gp_X)
     else:
-        mu, var, prior = _marginal_qf(spec, params, X3, diagonal=True)
-    kl = torch.sum(kld_qu(spec, params, prior))
+        mu, var, prior = _marginal_qf(gp_spec, gp_params, gp_X, diagonal=True)
+    kl = torch.sum(kld_qu(gp_spec, gp_params, prior))
     kl_flow = flows_kld(spec, params)
+    if block is not None:
+        mu, var, kl = block.join(mu, var, kl)
 
     lik = spec.likelihood
     lp = params["likelihood"]

@@ -12,12 +12,23 @@
   * the white kernel adds noise only to K(X, X) evaluations (`same=True`
     and N = M), never to K_zz or K_xz.
 
-Routing departs from the JAX package on purpose: its gate `_pallas_ok`
-sends only fp32 Grams of at least 2^18 elements to Pallas, to amortise a
-launch on the TPU.  Here every `rbf` or `scale(rbf)` Gram of a CUDA tensor,
+Routing departs from the JAX package on purpose in fp32 and fp64: its gate
+`_pallas_ok` sends only fp32 Grams of at least 2^18 elements to Pallas, to
+amortise a launch on the TPU, and computes the smaller ones with XLA ops,
+the same function.  Here every `rbf` or `scale(rbf)` Gram of a CUDA tensor,
 in fp32 and fp64, goes through the CUDA kernels (`ops/rbf_gram.py`), as a
 leaf of a product or additive tree too, and a CPU tensor takes the plain
 version.  The other kinds are plain torch ops on either device.
+
+In 'bf16' mode the two routes compute different functions, so the port
+follows `_pallas_ok`: an rbf Gram with fewer than 2^18 entries (Dy * N * M,
+per replica under `torch.func.vmap`) takes `_sq_dist` with bf16 operands in
+torch ops, where the TPU program takes XLA ops, and a larger one the fp32
+kernel; every other stationary kernel takes the bf16 cross term at any size.
+The rule is fixed by the shapes, never a fallback.  `gram_pair` decides each
+of its two Grams by its own size: one launch for both only when both reach
+2^18.  `BF16_GRAMS` counts the Grams of the bf16 route, as
+`rbf_gram.LAUNCHES` counts the kernel's.
 """
 
 from __future__ import annotations
@@ -30,10 +41,41 @@ import numpy as np
 import torch
 
 from .. import config as cfg
-from .rbf_gram import rbf_gram, rbf_gram_pair, sq_dist as _sq_dist
+from .rbf_gram import rbf_gram, rbf_gram_pair, sq_dist
 from .transforms import softplus, np_inv_softplus
 
 _STATIONARY = ("rbf", "matern12", "matern32", "matern52")
+
+#: in 'bf16' mode, rbf Grams of at least this many entries take the fp32
+#: kernel (the JAX package's `_PALLAS_MIN_ELEMS`)
+BF16_KERNEL_MIN_ELEMS = 1 << 18
+#: Grams computed with bf16 operands so far; a run sets it to 0 and reads it
+BF16_GRAMS = 0
+
+
+def _sq_dist(X1s, X2s):
+    """Squared distances with the cross term's operands in
+    `config.matmul_dtype()` (the JAX package's `_sq_dist`); each call in
+    'bf16' mode is one Gram of the bf16 route."""
+    global BF16_GRAMS
+    mm = cfg.matmul_dtype()
+    if mm == torch.bfloat16:
+        BF16_GRAMS += 1
+    return sq_dist(X1s, X2s, mm)
+
+
+def _bf16_route(X1s, X2s) -> bool:
+    """True where an rbf Gram takes `_sq_dist` with bf16 operands: 'bf16'
+    mode and fewer than `BF16_KERNEL_MIN_ELEMS` entries."""
+    return (cfg.precision() == "bf16" and X1s.shape[-3] * X1s.shape[-2]
+            * X2s.shape[-2] < BF16_KERNEL_MIN_ELEMS)
+
+
+def _rbf(X1s, X2s, ks):
+    """The rbf Gram of scaled inputs by the route its size picks."""
+    if _bf16_route(X1s, X2s):
+        return ks[:, None, None] * torch.exp(-0.5 * _sq_dist(X1s, X2s))
+    return rbf_gram(X1s.contiguous(), X2s.contiguous(), ks)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -221,7 +263,7 @@ def gram(spec: KernelSpec, params, X1, X2, same: bool = False):
     leaf = _rbf_leaf(spec, params, X1)
     if leaf is not None:
         ls, ks = leaf
-        return rbf_gram((X1 / ls).contiguous(), (X2 / ls).contiguous(), ks)
+        return _rbf(X1 / ls, X2 / ls, ks)
     if spec.kind in _STATIONARY:
         d2 = _sq_dist(_scaled(X1, params["raw_lengthscale"]),
                       _scaled(X2, params["raw_lengthscale"]))
@@ -266,12 +308,17 @@ def gram_pair(spec: KernelSpec, params, X, Z):
     of the kernel for both Grams; on a CPU tensor, two plain Grams), with
     its lengthscale and output scale computed and Z scaled once; any other
     leaf takes two `gram` calls.  A K-component spectral mixture thus takes
-    K launches.
+    K launches.  In 'bf16' mode each of an rbf leaf's Grams takes the route
+    of its own size (`_rbf`), and the pair is one launch only when both
+    reach `BF16_KERNEL_MIN_ELEMS`.
     """
     leaf = _rbf_leaf(spec, params, X)
     if leaf is not None:
         ls, ks = leaf
-        return rbf_gram_pair((X / ls).contiguous(), (Z / ls).contiguous(), ks)
+        Xs, Zs = X / ls, Z / ls
+        if _bf16_route(Xs, Zs) or _bf16_route(Zs, Zs):
+            return _rbf(Xs, Zs, ks), _rbf(Zs, Zs, ks)
+        return rbf_gram_pair(Xs.contiguous(), Zs.contiguous(), ks)
     if spec.kind == "scale":
         ks = softplus(params["raw_outputscale"])[:, None, None]
         Kxz, Kzz = gram_pair(spec.children[0], params["child"], X, Z)

@@ -123,15 +123,22 @@ def _load():
 # plain versions
 # ---------------------------------------------------------------------------
 
-def sq_dist(X1s, X2s):
+def sq_dist(X1s, X2s, operand_dtype=None):
     """Batched squared distances via the |x|^2 + |z|^2 - 2 x.z expansion,
     clamped at 0 (the JAX package's `kernels._sq_dist`): (Dy, N, M).
 
     `torch.maximum`, like `jnp.maximum`, passes half the gradient where d2 is
     exactly 0 (K_zz's diagonal), so autograd through it is JAX's gradient.
+    `operand_dtype` (bf16) rounds the cross term's operands and multiplies
+    them in the inputs' dtype, the accumulation of JAX's
+    `preferred_element_type`; the norms keep the inputs' dtype, and the
+    cotangents of the operands are rounded the same way by autograd.
     """
     n1 = torch.sum(torch.square(X1s), dim=-1)
     n2 = torch.sum(torch.square(X2s), dim=-1)
+    if operand_dtype is not None and operand_dtype != X1s.dtype:
+        X1s = X1s.to(operand_dtype).to(n1.dtype)
+        X2s = X2s.to(operand_dtype).to(n1.dtype)
     cross = torch.matmul(X1s, X2s.transpose(-1, -2))
     d2 = n1[:, :, None] + n2[:, None, :] - 2.0 * cross
     return torch.maximum(d2, d2.new_zeros(()))

@@ -24,9 +24,17 @@ battery's, through a full-batch-then-remainder epoch as the Trainer's.
 Nothing inside a chunk of steps reads a value back: the (elbo, ell, kld)
 rows stay on the device and a chunk fetches them with one copy.
 
-Not ported: `mesh=` (the replica axis sharded over cards; ROADMAP Queue 1
-item 20).  L-BFGS is refused, as the JAX battery refuses it: a full solver
-with its own line search does not compose with the battery's optimizer.
+On a mesh (`mesh=`, `parallel/mesh.py`) the replica axis is cut over 'dp'
+(`_Shard`): R is padded to a multiple of dp with copies of the last replica
+(its parameters, data, optimizer state and generator seed, so a copy's run
+is bitwise the replica's), each rank trains its block of replicas through
+the same map, and the parameters, curves, optimizer state and generator
+states are gathered to every rank (an all_reduce of zero-filled buffers over
+dp) and cut back to R.  A minibatch battery's shuffle streams advance for
+every replica on every rank, so no rank needs another's.
+
+L-BFGS is refused, as the JAX battery refuses it: a full solver with its
+own line search does not compose with the battery's optimizer.
 """
 
 from __future__ import annotations
@@ -35,6 +43,7 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .. import config as cfg
 from ..flows.hypernet import ReplicaGenerators
@@ -47,11 +56,77 @@ from .natgrad import gamma_at, guard_step_arch, natgrad_multiseed_step
 from .optimizers import LBFGS_REFUSAL, build_grouped_optimizer, param_paths
 from .trainer import frozen_param_labels
 
-_MESH_MSG = ("a battery on a mesh (the replica axis sharded over cards) is "
-             "not ported yet (ROADMAP Queue 1 item 20)")
 _REMAT_MSG = ("spec.remat in a battery (checkpointing under the replica "
               "map) is not ported yet (ROADMAP Queue 3, remat beyond a "
               "single-layer model's Trainer)")
+
+
+class _Shard:
+    """A battery's R replicas on a mesh: padded to R_pad, a multiple of dp,
+    with copies of the last replica; this rank's block of them (`index`,
+    the replica each local one is or copies); and the gathers back.
+    Without a mesh every replica is local and nothing moves."""
+
+    def __init__(self, mesh, R: int):
+        self.mesh, self.R = mesh, R
+        dp = 1 if mesh is None else mesh.dp
+        self.R_pad = R + (-R) % dp
+        per = self.R_pad // dp
+        lo = 0 if mesh is None else mesh.dp_index * per
+        self.index = [min(r, R - 1) for r in range(lo, lo + per)]
+        self.lo = lo
+
+    @property
+    def active(self) -> bool:
+        return self.mesh is not None
+
+    def take(self, x):
+        """The local replicas of x (leading axis R)."""
+        if not self.active or x is None:
+            return x
+        return x[torch.as_tensor(self.index) if torch.is_tensor(x)
+                 else np.asarray(self.index)]
+
+    def take_carry(self, carry):
+        if not self.active or carry is None:
+            return carry
+        st = carry["opt_state"]
+        if isinstance(st, GA.GroupAdamState):
+            st = GA.GroupAdamState(list(st.count), [self.take(t) for t in st.mu],
+                                   [self.take(t) for t in st.nu])
+        return dict(carry, opt_state=st,
+                    rngs=[carry["rngs"][i] for i in self.index])
+
+    def gather(self, t):
+        """A local (per, ...) tensor as the (R, ...) whole on every rank."""
+        if not self.active:
+            return t
+        if self.mesh.dp > 1:
+            buf = t.new_zeros((self.R_pad,) + tuple(t.shape[1:]))
+            buf[self.lo:self.lo + t.shape[0]] = t
+            dist.all_reduce(buf, group=self.mesh.group(("dp",)))
+            t = buf
+        return t[:self.R]
+
+    def gather_np(self, a):
+        """`gather` of a host array whose axis 1 holds the replicas."""
+        if not self.active:
+            return a
+        t = torch.as_tensor(np.ascontiguousarray(np.moveaxis(a, 1, 0)),
+                            dtype=torch.float64).to(self.mesh.device)
+        return np.moveaxis(self.gather(t).cpu().numpy(), 0, 1)
+
+    def gather_state(self, state):
+        if not self.active:
+            return state
+        st = state["opt_state"]
+        if isinstance(st, GA.GroupAdamState):
+            st = GA.GroupAdamState(list(st.count),
+                                   [self.gather(t) for t in st.mu],
+                                   [self.gather(t) for t in st.nu])
+        rngs = torch.stack(state["rngs"]).to(self.mesh.device, torch.int64)
+        rngs = self.gather(rngs).to("cpu", torch.uint8)
+        return dict(state, opt_state=st, rngs=list(rngs))
 
 
 def stack_trees(trees):
@@ -140,20 +215,19 @@ def _optimizer(spec, params_stack, opt: str, lr: float, clip_norm,
     return _Optimizer(opt, update, clip)
 
 
-def _resolve_carry(optimizer, leaves, carry, R, seed, device, opt=None,
+def _resolve_carry(optimizer, leaves, carry, R, seeds, device, opt=None,
                    clip_norm=None):
     """(opt_state, generators) for a battery call: fresh (one generator a
-    replica, seeded seed + r on `device`), or carried from an earlier
-    call's return_state=True result, so that the moments and the draws go
-    on across protocol phases (torch keep_parameter_groups semantics).
+    replica, from `config.make_rng(seeds[r])` on `device`), or carried from
+    an earlier call's return_state=True result, so that the moments and
+    the draws go on across protocol phases (torch keep_parameter_groups
+    semantics).
 
     The Adam family shares one state layout, so the carry records the
     optimizer kind and the clip; a mismatch raises rather than reading the
     moments under another rule."""
     if carry is None:
-        gens = [torch.Generator(device=device).manual_seed(int(seed) + r)
-                for r in range(R)]
-        return optimizer.init(leaves), gens
+        return optimizer.init(leaves), [cfg.make_rng(s, device) for s in seeds]
     for key, want in (("opt_kind", opt), ("clip_norm", clip_norm)):
         if key in carry and carry[key] != want:
             raise ValueError(
@@ -213,7 +287,7 @@ class _Battery:
     generators, and the mapped ELBO."""
 
     def __init__(self, spec, params_stack, X_stack, Y_stack, opt, lr,
-                 clip_norm, specs, carry, seed, natgrad_gamma, natgrad_force,
+                 clip_norm, specs, carry, seeds, natgrad_gamma, natgrad_force,
                  device):
         tgp_mod.check_spec(spec)
         if getattr(spec, "remat", False):        # a deep spec has none
@@ -237,7 +311,7 @@ class _Battery:
         self.optimizer = _optimizer(spec, self.params, opt, lr, clip_norm,
                                     specs, extra_frozen=ng_frozen)
         self.state, gens = _resolve_carry(self.optimizer, self.leaves, carry,
-                                          R, seed, self.device, opt=opt,
+                                          R, seeds, self.device, opt=opt,
                                           clip_norm=clip_norm)
         self.rngs = ReplicaGenerators(gens)
         self.token = torch.arange(R, device=self.device)
@@ -330,16 +404,20 @@ def train_multiseed(spec, params_stack, X_stack, Y_stack, epochs: int,
         boundary; a run split into carried calls is bitwise the single run.
       natgrad_gamma / natgrad_warmup / natgrad_force: natural gradients on
         each replica's q(U), as the Trainer's.
-      device: None is the card.
+      mesh: a `parallel.mesh.Mesh`; each rank trains its block of the
+        replicas, and every rank returns the whole result.
+      device: None is the card, or the mesh's device.
     Returns (params_stack, curves[, state]): curves a dict of (epochs, R)
     arrays (elbo, ell, kld), the Trainer's loss_curve per replica.
     """
-    if mesh is not None:
-        raise NotImplementedError(_MESH_MSG)
     if natgrad_warmup is not None and natgrad_gamma is None:
         raise ValueError("natgrad_warmup needs natgrad_gamma")
-    b = _Battery(spec, params_stack, X_stack, Y_stack, opt, lr, clip_norm,
-                 specs, carry, seed, natgrad_gamma, natgrad_force, device)
+    sh = _Shard(mesh, X_stack.shape[0])
+    b = _Battery(spec, tree_map(sh.take, params_stack), sh.take(X_stack),
+                 sh.take(Y_stack), opt, lr, clip_norm, specs,
+                 sh.take_carry(carry), [int(seed) + r for r in sh.index],
+                 natgrad_gamma, natgrad_force,
+                 mesh.device if mesh is not None else device)
     # the warmup ramp's step count rides the state dict across calls
     ng_t = int(carry.get("ng_t", 0)) if isinstance(carry, dict) else 0
     curves = _Curves(epochs, verbose_each, b.R)
@@ -354,10 +432,17 @@ def train_multiseed(spec, params_stack, X_stack, Y_stack, epochs: int,
         rows = [b.step(b.X, b.Y, g) for g in gs]
         prev, done = done, done + n
         curves.add(rows, prev, done)
+    return _finish(sh, b, curves, return_state, opt, clip_norm, ng_t=ng_t)
+
+
+def _finish(sh, b, curves, return_state, opt, clip_norm, **extra):
+    """A call's (params_stack, curves[, state]), gathered over the mesh."""
+    params = tree_map(sh.gather, b.result())
+    cv = {k: sh.gather_np(v) for k, v in curves.result().items()}
     if return_state:
-        return b.result(), curves.result(), b.state_dict(opt, clip_norm,
-                                                         ng_t=ng_t)
-    return b.result(), curves.result()
+        return params, cv, sh.gather_state(b.state_dict(opt, clip_norm,
+                                                        **extra))
+    return params, cv
 
 
 def train_multiseed_minibatch(spec, params_stack, X_stack, Y_stack,
@@ -387,21 +472,24 @@ def train_multiseed_minibatch(spec, params_stack, X_stack, Y_stack,
                                natgrad_gamma=natgrad_gamma,
                                natgrad_warmup=natgrad_warmup,
                                natgrad_force=natgrad_force, device=device)
-    if mesh is not None:
-        raise NotImplementedError(_MESH_MSG)
     if natgrad_warmup is not None:
         raise NotImplementedError(
             "natgrad_warmup is full-batch-only in the batteries (the "
             "Trainer's minibatch path supports it)")
-    b = _Battery(spec, params_stack, X_stack, Y_stack, opt, lr, clip_norm,
-                 specs, carry, seed, natgrad_gamma, natgrad_force, device)
+    sh = _Shard(mesh, R)
+    b = _Battery(spec, tree_map(sh.take, params_stack), sh.take(X_stack),
+                 sh.take(Y_stack), opt, lr, clip_norm, specs,
+                 sh.take_carry(carry), [int(seed) + r for r in sh.index],
+                 natgrad_gamma, natgrad_force,
+                 mesh.device if mesh is not None else device)
     n_batches, rem = divmod(N, MB)
     gens = [np.random.Generator(np.random.PCG64(seed + 7919 * (r + 1)))
             for r in range(R)]
     if carry is not None and "gen_states" in carry:
         for g, st in zip(gens, carry["gen_states"]):
             g.bit_generator.state = st
-    rows_of = torch.arange(R, device=b.device)[:, None]
+    local = torch.as_tensor(sh.index)
+    rows_of = torch.arange(b.R, device=b.device)[:, None]
 
     def batch(ids):                                      # ids (R, B)
         return b.X[rows_of, ids], b.Y[rows_of, ids]
@@ -414,7 +502,7 @@ def train_multiseed_minibatch(spec, params_stack, X_stack, Y_stack,
         n = min(chunk, epochs - done)
         perms = torch.from_numpy(np.stack(
             [np.stack([g.permutation(N) for g in gens]) for _ in range(n)])
-        ).to(b.device)                                   # (n, R, N)
+        )[:, local].to(b.device)                         # (n, R, N)
         rows = []
         for perm in perms:
             for i in range(n_batches):
@@ -424,10 +512,8 @@ def train_multiseed_minibatch(spec, params_stack, X_stack, Y_stack,
             rows.append(last)
         prev, done = done, done + n
         curves.add(rows, prev, done, timing=True)
-    if return_state:
-        return b.result(), curves.result(), b.state_dict(
-            opt, clip_norm, gen_states=[g.bit_generator.state for g in gens])
-    return b.result(), curves.result()
+    return _finish(sh, b, curves, return_state, opt, clip_norm,
+                   gen_states=[g.bit_generator.state for g in gens])
 
 
 @torch.no_grad()
@@ -444,15 +530,18 @@ def eval_multiseed(spec, params_stack, X_stack, Y_stack, Y_std_stack,
 
     Returns numpy arrays: logL (R, Dy) (per point), rmse (R, Dy)
     (Y_std-rescaled), coverage (R, Dy) for regression; logL (R,) and acc
-    (R,) for classification.
+    (R,) for classification.  On a mesh each rank evaluates its block of
+    the replicas and every rank returns the whole.
     """
-    if mesh is not None:
-        raise NotImplementedError(_MESH_MSG)
     tgp_mod.check_spec(spec)
-    device = cfg.resolve_device(device)
+    device = cfg.resolve_device(mesh.device if mesh is not None else device)
     dtype = cfg.default_dtype()
+    _check_replica_axis(params_stack, X_stack.shape[0])
+    sh = _Shard(mesh, X_stack.shape[0])
+    params_stack = tree_map(sh.take, params_stack)
+    X_stack, Y_stack = sh.take(X_stack), sh.take(Y_stack)
+    Y_std_stack = sh.take(np.asarray(Y_std_stack))
     R = X_stack.shape[0]
-    _check_replica_axis(params_stack, R)
 
     def put(a):
         return torch.as_tensor(np.asarray(a), dtype=dtype).to(device)
@@ -461,9 +550,8 @@ def eval_multiseed(spec, params_stack, X_stack, Y_stack, Y_std_stack,
                       params_stack)
     X, Y, Y_std = put(X_stack), put(Y_stack), put(Y_std_stack)
     is_class = spec.likelihood.is_classification
-    rngs = ReplicaGenerators([
-        torch.Generator(device=device).manual_seed(int(seed) + r)
-        for r in range(R)])
+    rngs = ReplicaGenerators([cfg.make_rng(int(seed) + r, device)
+                              for r in sh.index])
 
     def one(p, X, Y, Y_std, tok):
         gen = rngs.bind(tok)
@@ -493,4 +581,4 @@ def eval_multiseed(spec, params_stack, X_stack, Y_stack, Y_std_stack,
     with mapped_replicas(R):
         out = torch.func.vmap(one)(params, X, Y, Y_std,
                                    torch.arange(R, device=device))
-    return {k: v.cpu().numpy() for k, v in out.items()}
+    return {k: sh.gather(v).cpu().numpy() for k, v in out.items()}

@@ -139,22 +139,21 @@ def natgrad_apply_replicas(spec, params, dm, dS, gamma,
     return dict(params, q_mu=m_new, q_L=L_new)
 
 
-def _elbo_of_ms(spec, params, X, Y, rng):
-    """(elbo, ell, kld, m, S): the ELBO with q(U) given by leaf tensors m
-    and S (L = chol(sym(S))), which require grad."""
+def _params_of_ms(params):
+    """(params with q(U) given by leaf tensors m and S, L = chol(sym(S)),
+    m, S), m and S requiring grad."""
     m, _, S = _qu_ms(params)
     m = m.detach().requires_grad_(True)
     S = S.detach().requires_grad_(True)
-    p = dict(params, q_mu=m, q_L=torch.linalg.cholesky(_sym(S)))
-    e, ell, kld = tgp_mod.elbo(spec, p, X, Y, rng)
-    return e, ell, kld, m, S
+    return dict(params, q_mu=m, q_L=torch.linalg.cholesky(_sym(S))), m, S
 
 
 def natgrad_update(spec, params, X, Y, rng, gamma, max_halvings: int = 8):
     """A standalone step: dELBO/d(m, S) at `params`, then `natgrad_apply`.
     (The Trainer uses `natgrad_train_step`, which shares the backward pass
     with the hyperparameter gradients.)"""
-    e, _, _, m, S = _elbo_of_ms(spec, params, X, Y, rng)
+    p, m, S = _params_of_ms(params)
+    e = tgp_mod.elbo(spec, p, X, Y, rng)[0]
     dm, dS = torch.autograd.grad(e, (m, S))
     return natgrad_apply(spec, params, dm, _sym(dS), gamma,
                          max_halvings=max_halvings)
@@ -166,22 +165,25 @@ def gamma_at(gamma, warmup, t):
     return gamma * np.minimum(1.0, (np.asarray(t) + 1.0) / float(warmup))
 
 
-def natgrad_train_step(spec, optimizer, gamma):
+def natgrad_train_step(spec, optimizer, gamma, value_and_grad):
     """The fused hybrid step: one backward gives the hyperparameter
     gradients, which `optimizer` (the Trainer's phase step: a function of
     the gradients in `tree_leaves` order, q_mu and q_L frozen) applies in
     place, and dELBO/d(m, S), for the natural-gradient step on q(U), which
     is then written into params["q_mu"] and params["q_L"] in place.
 
-        step(params, X, Y, rng, g=None) -> (elbo, ell, kld)
+        step(params, X, Y, g=None) -> (elbo, ell, kld)
 
-    `g` overrides gamma for one call (the warmup ramp's)."""
+    `g` overrides gamma for one call (the warmup ramp's).
+    `value_and_grad(p, X, Y, wrt) -> (elbo, ell, kld, grads)` is the
+    Trainer's: the ELBO of p and the gradient of its negative with respect
+    to `wrt` (on a mesh, the rank's block, summed)."""
 
-    def step(params, X, Y, rng, g=None):
+    def step(params, X, Y, g=None):
         leaves = tree_leaves(params)
-        e, ell, kld, m, S = _elbo_of_ms(spec, params, X, Y, rng)
-        *grads, gm, gS = torch.autograd.grad(
-            -e, leaves + [m, S], allow_unused=True, materialize_grads=True)
+        p, m, S = _params_of_ms(params)
+        e, ell, kld, (*grads, gm, gS) = value_and_grad(
+            p, X, Y, leaves + [m, S])
         optimizer(grads)
         new = natgrad_apply(spec, params, -gm, -_sym(gS),
                             gamma if g is None else g)

@@ -59,13 +59,25 @@ package's `train/trainer.py`.
     Trainer continues the run bit for bit.  `eval_device = "cpu"` computes
     the metrics on the host CPU, with the draws still from the generator.
 
-Not ported yet: meshes (ROADMAP Queue 1 item 20).
+  * Meshes (`mesh=`, `parallel/mesh.py`): one rank a device, each with the
+    whole parameter tree and the whole batch; a step's Grams, solves and
+    KL run on the rank's (rows, outputs) block, the likelihood on the
+    gathered marginals, and the GP leaves' gradients are summed over the
+    split axes (`parallel.mesh.value_and_grad`), so every rank holds the
+    same parameters after each step, on every path (full batch, minibatch,
+    the host loop, natgrad, L-BFGS).  `compute_metrics` evaluates each
+    rank's slice of every batch's rows with draws folded by the rank, and
+    sums float64 accumulators over the ranks; rank 0 writes a checkpoint,
+    and every rank restores it.
+  * The generator's stream follows `config.rng_impl` (`config.make_rng`);
+    a checkpoint records it, and `restore` takes it from there.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import functools
+import os
 import time
 
 import numpy as np
@@ -75,10 +87,13 @@ from .. import config as cfg
 from ..flows.hypernet import DeviceDraws
 from ..models import deep, tgp as tgp_mod
 from ..models.tgp import TGPSpec
+from ..parallel import mesh as mesh_mod, multihost
 from ..weights import tree_leaves, tree_map, tree_unflatten
 from . import group_adam as GA, lbfgs as LB
 from .checkpoint import load_checkpoint, save_checkpoint, to_device
-from .metrics import calibration_measures, inside_95
+from .metrics import (calibration_accumulators,
+                      calibration_from_accumulators, calibration_measures,
+                      inside_95)
 from .natgrad import gamma_at, guard_step_arch, natgrad_train_step
 from .optimizers import build_grouped_optimizer, lbfgs_optimizer, param_paths
 
@@ -123,7 +138,10 @@ class Trainer:
       track_fn: called as track_fn(trainer) after every training step; a
         Trainer with one trains through the host loop.  Reading the curves
         there copies the steps' rows to the host.
-      device: where training runs; None means the card (raises without one).
+      mesh: a `parallel.mesh.Mesh`; every rank builds its Trainer with the
+        same arguments, and rank 0's parameters are broadcast to the others.
+      device: where training runs; None means the card (raises without
+        one), or the mesh's device.
     """
 
     #: datasets up to this many bytes are kept on the device for minibatch
@@ -133,16 +151,25 @@ class Trainer:
     def __init__(self, spec: TGPSpec, params, data_loaders, Y_std,
                  S_test: int = 100, validate_each: int = 10 ** 18,
                  seed: int = 0, track_fn=None, mesh=None, device=None):
-        if mesh is not None:
-            raise NotImplementedError("training on a mesh is not ported yet "
-                                      "(ROADMAP Queue 1 item 20)")
         tgp_mod.check_spec(spec)
         self.spec = spec
+        self.mesh = mesh
+        if mesh is not None:
+            if device is not None and torch.device(device) != mesh.device:
+                raise ValueError(f"device {device} is not the mesh's "
+                                 f"{mesh.device}")
+            device = mesh.device
         self.device = cfg.resolve_device(device)
         self.dtype = cfg.default_dtype()
         self.params = tree_map(
             lambda t: t.detach().to(self.device, self.dtype, copy=True)
             .requires_grad_(True), params)
+        #: the leaves whose gradients a mesh sums (`parallel.mesh.gp_leaves`)
+        self._gp_flags = tree_leaves(mesh_mod.gp_leaves(self.params))
+        if mesh is not None and mesh.world > 1:
+            with torch.no_grad():
+                for t in tree_leaves(self.params):
+                    t.copy_(multihost.replicate_global(mesh, t.detach()))
         self.train_loader = data_loaders[0]
         self.valid_loader = data_loaders[1] if len(data_loaders) == 3 else None
         self.test_loader = data_loaders[-1] if len(data_loaders) >= 2 else None
@@ -151,8 +178,10 @@ class Trainer:
         self.S_test = S_test
         self.validate_each = validate_each
         self.track_fn = track_fn
-        self._gen = torch.Generator(device=self.device)
-        self._gen.manual_seed(int(seed))
+        self._gen = cfg.make_rng(seed, self.device)
+        #: the stream's implementation (`config.rng_impl` at construction,
+        #: or the restored checkpoint's)
+        self.rng_impl = cfg.rng_impl
         # ELBO, ELL and KL per step (full batch, the host loop) or per epoch
         # (minibatch), on the host; `_pending` holds (elbo, ell, kld) rows
         # still on the device, appended when a curve is read
@@ -284,6 +313,14 @@ class Trainer:
               "optimizer moments carried", flush=True)
         return True
 
+    def _value_and_grad(self, params, X, Y, wrt, extra_gp=0):
+        """(elbo, ell, kld, grads): the ELBO of params (a tree whose leaves
+        are `wrt`, then `extra_gp` GP tensors) and its gradient; on a mesh,
+        the rank's block with the gradients summed over its split axes."""
+        return mesh_mod.value_and_grad(self.spec, params, X, Y, self._gen,
+                                       self.mesh, wrt,
+                                       self._gp_flags + [True] * extra_gp)
+
     def _step(self, step, X, Y):
         """One optimisation step; returns (elbo, ell, kld) on the device."""
         if self._natgrad_gamma is not None:
@@ -292,15 +329,16 @@ class Trainer:
                 g = float(gamma_at(self._natgrad_gamma, self._natgrad_warmup,
                                    self._ng_t))
                 self._ng_t += 1
-            out = natgrad_train_step(self.spec, step, self._natgrad_gamma)(
-                self.params, X, Y, self._gen, g)
+            out = natgrad_train_step(
+                self.spec, step, self._natgrad_gamma,
+                lambda p, X, Y, wrt: self._value_and_grad(p, X, Y, wrt,
+                                                          extra_gp=2))(
+                self.params, X, Y, g)
             return torch.stack(out)
-        leaves = tree_leaves(self.params)
-        e, ell, kld = tgp_mod.elbo(self.spec, self.params, X, Y, self._gen)
-        grads = torch.autograd.grad(-e, leaves, allow_unused=True,
-                                    materialize_grads=True)
+        e, ell, kld, grads = self._value_and_grad(self.params, X, Y,
+                                                  tree_leaves(self.params))
         step(grads)
-        return torch.stack([e.detach(), ell.detach(), kld.detach()])
+        return torch.stack([e, ell, kld])
 
     def _record(self, rows):
         """Append the (elbo, ell, kld) rows of a chunk with one copy."""
@@ -528,11 +566,8 @@ class Trainer:
 
         def objective(pp, X, Y):
             self._gen.set_state(gen_state)
-            e, ell, kld = tgp_mod.elbo(
-                self.spec, tree_unflatten(self.params, pp), X, Y, self._gen)
-            grads = torch.autograd.grad(-e, pp, allow_unused=True,
-                                        materialize_grads=True)
-            return e.detach(), ell.detach(), kld.detach(), grads
+            return self._value_and_grad(tree_unflatten(self.params, pp), X,
+                                        Y, pp)
 
         def step(X, Y):
             def value_and_grad(flat):
@@ -611,20 +646,31 @@ class Trainer:
         (default: the length of the ELBO curve): the parameters, the carried
         optimizer state and its kind, the generator's state and the kind of
         device it lives on, the training loader's shuffle stream,
-        `fully_bayesian` and natgrad's warmup position; enough for
-        `restore` to continue a run bit for bit."""
+        `fully_bayesian`, natgrad's warmup position and the stream's
+        implementation; enough for `restore` to continue a run bit for bit.
+        On a mesh rank 0 writes the whole tree (every rank holds it) and
+        every rank waits for the file; the write is then synchronous."""
         extra = {"generator": self._gen.get_state(),
                  "generator_device": self.device.type,
+                 "rng_impl": self.rng_impl,
                  "fully_bayesian": bool(self.fully_bayesian),
                  # a fresh loader would replay the first epoch's permutation
                  "loader_state": self.train_loader._rng.bit_generator.state,
                  "ng_t": int(self._ng_t),
                  "opt_kind": self._opt_state_kind}
-        return save_checkpoint(
-            path, self.params,
-            step=len(self.loss_curve) if step is None else step,
-            opt_state=self._opt_state_carry, extra=extra,
-            async_save=async_save)
+        step = len(self.loss_curve) if step is None else step
+        if self.mesh is None:
+            return save_checkpoint(path, self.params, step=step,
+                                   opt_state=self._opt_state_carry,
+                                   extra=extra, async_save=async_save)
+        final = None
+        if self.mesh.rank == 0:
+            final = save_checkpoint(path, self.params, step=step,
+                                    opt_state=self._opt_state_carry,
+                                    extra=extra)
+        if self.mesh.world > 1:
+            torch.distributed.barrier()
+        return final or os.path.join(os.path.abspath(path), f"step_{step}")
 
     def restore(self, path: str, step: int | None = None):
         """Load a checkpoint written by `save` into this Trainer, every
@@ -645,6 +691,7 @@ class Trainer:
         self._opt_state_carry = to_device(opt_state, self.device)
         self._opt_state_kind = extra["opt_kind"]
         self._gen.set_state(extra["generator"])
+        self.rng_impl = extra.get("rng_impl", "threefry2x32")
         self.fully_bayesian = extra["fully_bayesian"]
         self.train_loader._rng.bit_generator.state = extra["loader_state"]
         self._ng_t = extra["ng_t"]
@@ -709,14 +756,40 @@ class Trainer:
                 "rng": DeviceDraws(self._gen),
                 "Y_std": self._Y_std_dev.to(cpu)}
 
+    def _batches(self, loader, ev):
+        """(X, Y, ev) of each batch of `loader` that this rank evaluates:
+        every batch on one rank; on a mesh of ranks the rank's slice of every
+        batch's rows (`np.array_split` over the ranks), with its draws from
+        a generator seeded by one draw of the Trainer's generator, in
+        lockstep on every rank, folded with the rank (the JAX package's
+        `fold_in(rng, process)`)."""
+        for X, Y in loader:
+            if not multihost.is_multihost(self.mesh):
+                yield X, Y, ev
+                continue
+            gen = self._gen
+            s = int(torch.randint(0, 2 ** 62, (1,), generator=gen,
+                                  device=gen.device))
+            rows = np.array_split(np.arange(np.shape(X)[0]),
+                                  self.mesh.world)[self.mesh.rank]
+            if rows.size == 0:
+                continue
+            g = torch.Generator(device=gen.device).manual_seed(
+                cfg.stream_seed(s * self.mesh.world + self.mesh.rank, "rbg"))
+            yield (np.asarray(X)[rows], np.asarray(Y)[rows],
+                   dict(ev, rng=g if isinstance(ev["rng"], torch.Generator)
+                        else DeviceDraws(g)))
+
     def _class_metrics_for_loader(self, loader, ev):
         """logL (1,), accuracy and calibration over a loader (JAX
-        `train/trainer.py:911-967`)."""
+        `train/trainer.py:911-967`); on a mesh, float64 sums over the
+        ranks."""
         ElogL, correct, tot = np.zeros(1), 0.0, 0
         all_probs, all_labels = [], []
-        for X, Y in loader:
+        for X, Y, ev_b in self._batches(loader, ev):
             log_p, probs, _ = self._eval_batch(self._put(X, ev["device"]),
-                                               self._put(Y, ev["device"]), ev)
+                                               self._put(Y, ev["device"]),
+                                               ev_b)
             probs = probs.cpu().numpy()
             labels = np.asarray(Y).reshape(-1)
             ElogL[0] += log_p.cpu().numpy().sum()
@@ -724,6 +797,15 @@ class Trainer:
             all_probs.append(probs)
             all_labels.append(labels)
             tot += X.shape[0]
+        if multihost.is_multihost(self.mesh):
+            calib = (calibration_accumulators(np.concatenate(all_probs),
+                                              np.concatenate(all_labels))
+                     if all_probs else calibration_accumulators(
+                         np.zeros((0, 2)), np.zeros(0, dtype=int)))
+            vec = multihost.psum_across_processes(
+                self.mesh, np.concatenate([ElogL, [correct, tot], calib]))
+            return {"logL": vec[:1] / vec[2], "acc": vec[1] / vec[2],
+                    "calibration": calibration_from_accumulators(vec[3:])}
         return {"logL": ElogL / tot, "acc": correct / tot,
                 "calibration": calibration_measures(
                     np.concatenate(all_probs), np.concatenate(all_labels))}
@@ -735,20 +817,27 @@ class Trainer:
         Dy = self.spec.Dy
         ElogL, sq_err, coverage = np.zeros(Dy), np.zeros(Dy), np.zeros(Dy)
         tot = 0
-        for X, Y in loader:
+        for X, Y, ev_b in self._batches(loader, ev):
             log_p, m1, inside = self._eval_batch(
-                self._put(X, ev["device"]), self._put(Y, ev["device"]), ev)
+                self._put(X, ev["device"]), self._put(Y, ev["device"]), ev_b)
             ElogL += log_p.cpu().numpy()
             sq_err += np.sum((m1.cpu().numpy() - np.asarray(Y).T) ** 2, axis=-1)
             coverage += inside.sum(dim=-1).cpu().numpy()
             tot += X.shape[0]
+        if multihost.is_multihost(self.mesh):
+            vec = multihost.psum_across_processes(
+                self.mesh, np.concatenate([ElogL, sq_err, coverage, [tot]]))
+            ElogL, sq_err, coverage = vec[:Dy], vec[Dy:2 * Dy], vec[2 * Dy:-1]
+            tot = vec[-1]
         return {"logL": ElogL / tot, "rmse": self.Y_std * np.sqrt(sq_err / tot),
                 "coverage": coverage / tot}
 
     def compute_metrics(self):
         """Full-split metrics for train/valid/test: logL, rmse and coverage
         per output, or for classification logL, acc and calibration.  With
-        `eval_device = "cpu"` they are computed on the host CPU."""
+        `eval_device = "cpu"` they are computed on the host CPU; on a mesh
+        each rank evaluates its slice of the rows (`_batches`) and every
+        rank returns the same sums."""
         ev = self._evaluation()
         res = {"train": self._metrics_for_loader(self.train_loader, ev)}
         if self.valid_loader is not None:
