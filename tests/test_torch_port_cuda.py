@@ -1184,3 +1184,137 @@ def test_one_by_one_nccl_mesh_is_bitwise_the_run_without(dev, tmp_path):
     for a, b in zip(weights.tree_leaves(runs[0][0].params),
                     weights.tree_leaves(runs[1][0].params)):
         assert torch.equal(a, b)
+
+
+# ---------------------------------------------------------------------------
+# the library surface and remat under the battery's replica map
+# ---------------------------------------------------------------------------
+
+def _battery_model(kind, R_=3, N=60, M=6):
+    """(spec, stacked params, X, Y) on the CPU: a SAL(1) TGP, or an ID_TGP
+    whose SAL(1) nets draw dropout masks ('id_tgp'), R_ replicas."""
+    from tgp.pytorch_tpu_torch.flows import generators as G
+    from tgp.pytorch_tpu_torch.flows.core import spec_from_list
+    from tgp.pytorch_tpu_torch.likelihoods import LikelihoodSpec
+    from tgp.pytorch_tpu_torch.models import tgp as M_
+    from tgp.pytorch_tpu_torch.ops import kernels as K
+    from tgp.pytorch_tpu_torch.train import multiseed as ms
+
+    rs = np.random.RandomState(4)
+    X = rs.randn(R_, N, 2)
+    Y = np.sinh(X @ rs.randn(R_, 2, 1)) + 0.1 * rs.randn(R_, N, 1)
+    np.random.seed(0)
+    arch = (G.SAL(1, input_dependent=True, input_dim=2, hidden_dim=4,
+                  num_hidden_layers=1, dropout=0.25, inference="MC_dropout")
+            if kind == "id_tgp" else G.SAL(1))
+    fspec, inits = spec_from_list(arch)
+    spec = M_.TGPSpec(Dy=1, Dx=2, M=M, N=float(N),
+                      kernel=K.from_name("scale_rbf"), flow=fspec,
+                      likelihood=LikelihoodSpec("gaussian_flow", 1,
+                                                quad_points=10))
+    stack = ms.stack_trees([weights.perturb_params(M_.init_tgp_params(
+        spec, X[r], X[r][:M].copy(), flow_inits=inits, device="cpu"),
+        seed=r) for r in range(R_)])
+    return spec, stack, X, Y
+
+
+@pytest.mark.parametrize("kind, R_", [("tgp", 1), ("tgp", 3),
+                                      ("minibatch", 3), ("id_tgp", 3)])
+def test_battery_remat_on_the_card_is_bitwise_the_plain_battery(dev, kind,
+                                                                R_):
+    """`spec.remat` under the battery's map, fp32 on the card, 6 steps: 2
+    forward launches and 1 backward call a step whatever R; parameters,
+    curves, Adam moments and the replicas' generators bitwise the plain
+    battery's (an ID_TGP's dropout masks replayed in the recompute)."""
+    import dataclasses
+    from tgp.pytorch_tpu_torch.train import multiseed as ms
+
+    spec, stack, X, Y = _battery_model(kind, R_)
+    kw = dict(batch_size=20) if kind == "minibatch" else {}
+    steps = 6 * (3 if kind == "minibatch" else 1)
+    runs = []
+    for remat in (False, True):
+        before = (R.LAUNCHES, R.BWD_LAUNCHES)
+        out, cv, st = ms.train_multiseed_minibatch(
+            dataclasses.replace(spec, remat=remat), stack, X, Y, 6, 0.01,
+            batch_size=kw.get("batch_size", 10 ** 9), seed=5, device=dev,
+            return_state=True)
+        torch.cuda.synchronize()
+        runs.append((out, cv, st, (R.LAUNCHES - before[0],
+                                   R.BWD_LAUNCHES - before[1])))
+    (out, cv, st, calls), (out_r, cv_r, st_r, calls_r) = runs
+    assert calls == (steps, steps) and calls_r == (2 * steps, steps)
+    for a, b in zip(weights.tree_leaves(out), weights.tree_leaves(out_r)):
+        assert torch.equal(a, b)
+    for k in cv:
+        np.testing.assert_array_equal(cv[k], cv_r[k])
+    for a, b in zip(st["opt_state"].mu + st["opt_state"].nu,
+                    st_r["opt_state"].mu + st_r["opt_state"].nu):
+        assert torch.equal(a, b)
+    for a, b in zip(st["rngs"], st_r["rngs"]):
+        assert torch.equal(a, b)
+
+
+def test_top_level_names_and_the_tgp_wrapper_on_the_card(dev):
+    """The JAX quickstart's names from the port's top level build a model
+    on the card; `TGP`'s five methods give the functional calls' bits, each
+    through one forward launch and no backward but the ELBO's gradient."""
+    from tgp.pytorch_tpu_torch import (TGP, TGPSpec, LikelihoodSpec,
+                                       init_tgp_params, kmeans_centers)
+    from tgp.pytorch_tpu_torch.flows import generators as G, spec_from_list
+    from tgp.pytorch_tpu_torch.models import tgp as M_
+    from tgp.pytorch_tpu_torch.ops import kernels as K
+
+    rs = np.random.RandomState(2)
+    X = rs.randn(200, 4)
+    Y = np.sinh(X @ rs.randn(4, 1)) + 0.1 * rs.randn(200, 1)
+    np.random.seed(0)
+    flow, inits = spec_from_list(G.SAL(2))
+    spec = TGPSpec(Dy=1, Dx=4, M=20, N=200.0, kernel=K.from_name("scale_rbf"),
+                   likelihood=LikelihoodSpec("gaussian_flow", 1,
+                                             quad_points=100), flow=flow)
+    params = init_tgp_params(spec, X, kmeans_centers(X, 20, n_init=10),
+                             variance_scale=1e-5, flow_inits=inits,
+                             device=dev)
+    model = TGP(spec, params)
+    Xd, Yd, Ys = (torch.as_tensor(a, dtype=torch.float32, device=dev)
+                  for a in (X, Y, np.array([1.3])))
+    calls = {"elbo": ((Xd, Yd), {}), "marginal_qf": ((Xd,), {}),
+             "predictive_distribution": ((Xd,), {}),
+             "test_log_likelihood": ((Xd, Yd, Ys), {}),
+             "sample_predictive": ((Xd, 10), {})}
+    for name, (args, kw) in calls.items():
+        outs = []
+        for fn in (getattr(model, name),
+                   lambda *a, **k: getattr(M_, name)(spec, params, *a, **k)):
+            extra = ((torch.Generator(device=dev).manual_seed(3),)
+                     if name == "sample_predictive" else ())
+            before = R.LAUNCHES
+            out = fn(*args, *extra, **kw)
+            torch.cuda.synchronize()
+            assert R.LAUNCHES - before == 1, name
+            outs.append(out if isinstance(out, tuple) else (out,))
+        for a, b in zip(*outs):
+            assert torch.equal(a, b), name
+
+
+def test_quickstart_on_the_card_reads_its_checkpoint_back(dev, tmp_path):
+    """`examples.quickstart.run` for 5 epochs on the card (fp32, M=50): 1
+    forward launch and 1 backward call a step, 2 forward an evaluation
+    batch (train and test), 1 for the served request; the checkpoint's
+    params and JSON spec read back bitwise."""
+    from tgp.pytorch_tpu_torch.examples import quickstart
+    from tgp.pytorch_tpu_torch.models.serialization import spec_from_json
+    from tgp.pytorch_tpu_torch.train.checkpoint import load_checkpoint
+
+    before = (R.LAUNCHES, R.BWD_LAUNCHES)
+    res = quickstart.run(5, dev, checkpoint_dir=str(tmp_path), verbose_each=0)
+    torch.cuda.synchronize()
+    assert (R.LAUNCHES - before[0], R.BWD_LAUNCHES - before[1]) == (10, 5)
+    params, _, step, extra = load_checkpoint(str(tmp_path))
+    assert step == 5
+    for a, b in zip(weights.tree_leaves(params),
+                    weights.tree_leaves(res["trainer"].params)):
+        assert torch.equal(a, b.detach().cpu())
+    assert spec_from_json(extra["spec"]) == res["spec"]
+    assert np.all(np.isfinite(res["prediction"]["mean"]))

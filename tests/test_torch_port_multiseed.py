@@ -8,8 +8,10 @@ fp64.
     battery's, and each replica against `Trainer(seed=seed + r)` on its
     own split;
   * a carried split call bitwise the single call (full batch and
-    minibatch), the kind and clip refusals, the full-batch fallback, a
-    remat spec refused by the battery's training (not its evaluation);
+    minibatch), the kind and clip refusals, the full-batch fallback;
+    `spec.remat` bitwise the plain battery (full batch, minibatch, an
+    ID_TGP battery's generators, evaluation) and against the JAX battery
+    with remat;
   * `eval_multiseed` against JAX (logL, rmse; logL, acc) and against the
     Trainer's evaluation of each replica (coverage too, whose draws differ
     between the packages);
@@ -20,7 +22,8 @@ fp64.
     the categorical likelihood) against independent Trainers: replica r
     draws what `Trainer(seed=seed + r)` draws;
   * with the kernels' launches emulated on the CPU, a mapped step launches
-    each Gram kernel once forward and once backward, whatever R is.
+    each Gram kernel once forward and once backward, whatever R is (a
+    remat step twice forward).
 Values at rtol 1e-8, atol 1e-10 (the same float64 math on both sides).
 """
 
@@ -325,12 +328,30 @@ def test_eval_multiseed_matches_jax_and_the_trainer(case):
             close(m_p[k][r], got[k])
 
 
-@pytest.mark.parametrize("entry", ["full_batch", "minibatch", "eval"])
+@pytest.mark.parametrize("entry", ["full_batch", "minibatch", "eval",
+                                   "id_tgp", "categorical", "bernoulli",
+                                   "svgp_unwhitened"])
 def test_battery_remat(entry):
-    """A battery's training refuses spec.remat by name; its evaluation,
-    which takes no gradient, gives the plain spec's metrics bitwise."""
-    _, spec_p, ps, X, Y = model("tgp")
-    sp = stacks(ps)[1]
+    """spec.remat in a battery checkpoints `marginal_qf` and the warp, each
+    over all replicas: its training (full batch, minibatch) gives the plain
+    battery's parameters, curves and optimizer state bitwise and matches
+    the JAX battery with remat; an ID_TGP battery's generators (its masks)
+    and a categorical one's (its MC normals) end bitwise where the plain
+    battery's do, as do a Bernoulli TGP's and an unwhitened SVGP's (K_zz
+    carried out of the checkpoint) batteries; its evaluation, which takes
+    no gradient, gives the plain spec's metrics bitwise."""
+    if entry in ("id_tgp", "categorical"):
+        spec_p, ps, X, Y = _port_model(
+            "id_mc" if entry == "id_tgp" else "categorical")
+        sp = ms.stack_trees(ps)
+    elif entry in ("bernoulli", "svgp_unwhitened"):
+        spec_j, spec_p, ps, X, Y = model(entry.split("_")[0])
+        sj, sp = stacks(ps)
+        if entry == "svgp_unwhitened":
+            spec_p = dataclasses.replace(spec_p, whiten=False)
+    else:
+        spec_j, spec_p, ps, X, Y = model("tgp")
+        sj, sp = stacks(ps)
     rspec = dataclasses.replace(spec_p, remat=True)
     if entry == "eval":
         Ystd = np.ones((R, 1))
@@ -341,11 +362,34 @@ def test_battery_remat(entry):
         for k in want:
             np.testing.assert_array_equal(got[k], want[k])
         return
-    train, kw = ((ms.train_multiseed, {}) if entry == "full_batch" else
-                 (ms.train_multiseed_minibatch, dict(batch_size=15)))
-    with pytest.raises(NotImplementedError,
-                       match=r"spec\.remat in a battery .*ROADMAP Queue 3"):
-        train(rspec, sp, X, Y, 1, 0.01, device="cpu", **kw)
+    train, jtrain, kw = ((ms.train_multiseed, jms.train_multiseed, {})
+                         if entry != "minibatch" else
+                         (ms.train_multiseed_minibatch,
+                          jms.train_multiseed_minibatch,
+                          dict(batch_size=15)))
+    runs = [train(s, sp, X, Y, 6, 0.01, seed=5, device="cpu",
+                  return_state=True, **kw) for s in (rspec, spec_p)]
+    (out, cv, st), (out_p, cv_p, st_p) = runs
+    for a, b in zip(tree_leaves(out), tree_leaves(out_p)):
+        assert torch.equal(a, b)
+    for k in cv_p:
+        np.testing.assert_array_equal(cv[k], cv_p[k])
+    for a, b in zip(tree_leaves(st["opt_state"].mu + st["opt_state"].nu),
+                    tree_leaves(st_p["opt_state"].mu + st_p["opt_state"].nu)):
+        assert torch.equal(a, b)
+    for a, b in zip(st["rngs"], st_p["rngs"]):
+        assert torch.equal(a, b)
+    if entry in ("id_tgp", "categorical"):
+        # the generators moved: the battery drew its masks or normals
+        fresh = [pcfg.make_rng(5 + r, "cpu").get_state() for r in range(R)]
+        assert not any(torch.equal(a, b) for a, b in zip(st["rngs"], fresh))
+    if entry not in ("full_batch", "minibatch"):
+        return
+    out_j, cv_j = jtrain(dataclasses.replace(spec_j, remat=True), sj, X, Y,
+                         6, 0.01, seed=5, **kw)
+    close_trees(out, out_j)
+    for k in ("elbo", "ell", "kld"):
+        close(cv[k], cv_j[k])
 
 
 def test_per_replica_clip_matches_a_per_model_clip():
@@ -586,19 +630,23 @@ def emulated_kernels(monkeypatch):
     monkeypatch.setattr(RG, "BWD_LAUNCHES", 0)
 
 
-@pytest.mark.parametrize("case", ["full_batch", "natgrad", "dgp"])
+@pytest.mark.parametrize("case", ["full_batch", "natgrad", "dgp", "remat"])
 def test_mapped_step_launches_each_kernel_once(emulated_kernels, case):
     """A battery step, whatever R, launches the pair once forward and once
-    backward a rbf leaf (a DGP-2 step: 2 and 2, a layer each); an
-    evaluation call 2 forward and no backward (a DGP-2's: 2, its one
-    propagation); and the results equal the plain path's (the same run
-    without the Functions)."""
+    backward a rbf leaf (a DGP-2 step: 2 and 2, a layer each; a remat step
+    2 and 1, its recompute the second forward); an evaluation call 2
+    forward and no backward (a DGP-2's: 2, its one propagation); and the
+    results equal the plain path's (the same run without the
+    Functions)."""
+    fwd = 1
     if case == "dgp":
         spec, ps, X, Y = _port_model("dgp")
         stack, leaves = ms.stack_trees(ps), 2
     else:
         _, spec, ps, X, Y = model("svgp" if case == "natgrad" else "tgp")
         stack, leaves = stacks(ps)[1], 1
+    if case == "remat":
+        spec, fwd = dataclasses.replace(spec, remat=True), 2
     kw = dict(natgrad_gamma=1.0) if case == "natgrad" else {}
     counts = []
     for Rn in (1, R):
@@ -607,7 +655,7 @@ def test_mapped_step_launches_each_kernel_once(emulated_kernels, case):
         out, cv = ms.train_multiseed(spec, sub, X[:Rn], Y[:Rn], 4, 0.01,
                                      seed=5, device="cpu", **kw)
         counts.append((RG.LAUNCHES, RG.BWD_LAUNCHES))
-    assert counts == [(4 * leaves, 4 * leaves)] * 2
+    assert counts == [(4 * fwd * leaves, 4 * leaves)] * 2
     RG.LAUNCHES = RG.BWD_LAUNCHES = 0
     m = ms.eval_multiseed(spec, out, X, Y, np.ones((R, 1)), S_test=10,
                           device="cpu")

@@ -39,6 +39,7 @@ wants the CPU says `device="cpu"`.
 from __future__ import annotations
 
 import contextlib
+import math
 
 import numpy as np
 import torch
@@ -51,12 +52,18 @@ rng_impl = "threefry2x32"
 #: number of Gauss-Hermite nodes (the JAX package defaults to 100 everywhere)
 quad_points = 100
 
+#: Monte Carlo samples for training and testing deep or Bayesian models
+S_train = 1
+S_test = 100
+
 #: seed used for numpy-side initialisation
 config_seed = 0
 
 #: fixed jitter scale added to K_zz diagonals before Cholesky, by dtype
 JITTER_F32 = 1e-6
 JITTER_F64 = 1e-8
+
+PI = math.pi
 
 
 def set_precision(mode: str) -> None:

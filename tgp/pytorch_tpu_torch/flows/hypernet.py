@@ -153,6 +153,13 @@ class ReplicaGenerators:
     def bind(self, token) -> "ReplicaGenerators":
         return ReplicaGenerators(self.gens, token)
 
+    def get_state(self):
+        return [g.get_state() for g in self.gens]
+
+    def set_state(self, states):
+        for g, st in zip(self.gens, states):
+            g.set_state(st)
+
 
 class _ReplicaDraw(torch.autograd.Function):
     """fn(generator) for each replica's generator, stacked on the mapped

@@ -29,8 +29,18 @@ def bernoulli_ell(spec: LikelihoodSpec, params, Y, mu, var, warp):
     log1p(-1) is NaN; its derivative is finite where warped nodes reach
     |f| ~ 1e15 (the fp32 warp clip).
     """
+    return bernoulli_ell_at(spec, Y, warp(bernoulli_nodes(spec, mu, var)))
+
+
+def bernoulli_nodes(spec: LikelihoodSpec, mu, var):
+    """The shifted nodes that `bernoulli_ell` warps, (S, 1, MB)."""
     gh = GaussHermite(spec.quad_points)
-    fk = warp(gh.shifted_locations(mu, torch.clamp_min(var, 0.0)))
+    return gh.shifted_locations(mu, torch.clamp_min(var, 0.0))
+
+
+def bernoulli_ell_at(spec: LikelihoodSpec, Y, fk):
+    """`bernoulli_ell` from the warped nodes fk (S, 1, MB)."""
+    gh = GaussHermite(spec.quad_points)
     bce = Y[None] * log_ndtr(fk) + (1.0 - Y[None]) * log_ndtr(-fk)
     return torch.sum(gh.reduce(bce))
 
@@ -54,13 +64,19 @@ def bernoulli_moments(spec: LikelihoodSpec, params, mu, var, warp,
     return torch.clamp(p, 0.0, 1.0)[..., 0, :]
 
 
-def _mc_logits(spec: LikelihoodSpec, mu, var, warp, rng, draws):
-    """S = quad_points reparameterised draws of f (draws + (S, C, MB)) through
-    the per-class warp, as logits draws + (S, MB, C)."""
+def categorical_nodes(spec: LikelihoodSpec, mu, var, rng, draws=()):
+    """S = quad_points reparameterised draws of f, draws + (S, C, MB): the
+    values that the per-class warp takes."""
     shape = tuple(draws) + (spec.quad_points,) + tuple(mu.shape)
     eps = hypernet._draw("normal", shape, None, rng, mu.dtype, mu.device)
-    fk = warp(mu + torch.sqrt(var) * eps)
-    return torch.movedim(fk, -2, -1)
+    return mu + torch.sqrt(var) * eps
+
+
+def _mc_logits(spec: LikelihoodSpec, mu, var, warp, rng, draws):
+    """`categorical_nodes` through the per-class warp, as logits
+    draws + (S, MB, C)."""
+    return torch.movedim(warp(categorical_nodes(spec, mu, var, rng, draws)),
+                         -2, -1)
 
 
 def categorical_ell(spec: LikelihoodSpec, params, Y, mu, var, warp, rng):
@@ -71,7 +87,13 @@ def categorical_ell(spec: LikelihoodSpec, params, Y, mu, var, warp, rng):
     Y is (MB,) labels; mu and var are (C, MB); `warp` maps (S, C, MB) to the
     same shape; `rng` is the generator of the draws.
     """
-    logp = torch.log_softmax(_mc_logits(spec, mu, var, warp, rng, ()), dim=-1)
+    return categorical_ell_at(
+        spec, Y, warp(categorical_nodes(spec, mu, var, rng)))
+
+
+def categorical_ell_at(spec: LikelihoodSpec, Y, fk):
+    """`categorical_ell` from the warped draws fk (S, C, MB)."""
+    logp = torch.log_softmax(torch.movedim(fk, -2, -1), dim=-1)
     idx = Y.reshape(1, -1, 1).long().expand(logp.shape[0], -1, 1)
     return torch.sum(torch.mean(torch.gather(logp, -1, idx)[..., 0], dim=0))
 

@@ -116,9 +116,19 @@ def gaussian_flow_ell(spec: LikelihoodSpec, params, Y, mu, var, warp):
     Y, mu and var are (Dy, MB); `warp` maps the shifted nodes (S, Dy, MB) to
     warped values of the same shape.  Returns (Dy,).
     """
+    return gaussian_flow_ell_at(spec, params, Y,
+                                warp(gaussian_flow_nodes(spec, mu, var)))
+
+
+def gaussian_flow_nodes(spec: LikelihoodSpec, mu, var):
+    """The shifted nodes that `gaussian_flow_ell` warps, (S, Dy, MB)."""
+    return GaussHermite(spec.quad_points).shifted_locations(mu, var)
+
+
+def gaussian_flow_ell_at(spec: LikelihoodSpec, params, Y, fk):
+    """`gaussian_flow_ell` from the warped nodes fk (S, Dy, MB)."""
     gh = GaussHermite(spec.quad_points)
     C_y = noise_variance(spec, params)                    # (Dy, 1)
-    fk = warp(gh.shifted_locations(mu, var))              # (S, Dy, MB)
     log_p = _log_normal(Y[None], fk, C_y.reshape(1, -1, 1))
     return torch.sum(gh.reduce(log_p), dim=-1)
 

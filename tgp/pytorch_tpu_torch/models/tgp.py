@@ -66,10 +66,12 @@ from ..flows.core import (
     is_identity_spec,
 )
 from ..likelihoods.classification import (
-    bernoulli_ell,
+    bernoulli_ell_at,
     bernoulli_moments,
-    categorical_ell,
+    bernoulli_nodes,
+    categorical_ell_at,
     categorical_moments,
+    categorical_nodes,
 )
 from ..likelihoods.gaussian import (
     LikelihoodSpec,
@@ -77,7 +79,8 @@ from ..likelihoods.gaussian import (
     init_likelihood_params,
     noise_variance,
     gaussian_ell,
-    gaussian_flow_ell,
+    gaussian_flow_ell_at,
+    gaussian_flow_nodes,
     gaussian_moments,
     gaussian_flow_moments,
 )
@@ -163,6 +166,14 @@ def check_spec(spec: TGPSpec) -> None:
     for flow in flows:
         for step in flow:
             check_step(step)
+
+
+def svgp_spec(**kw) -> TGPSpec:
+    """SVGP (Hensman et al.): a TGP with identity flows, one per output
+    (JAX `models/tgp.py:190-195`)."""
+    kw.setdefault("flow", IDENTITY_SPEC)
+    kw.setdefault("flow_is_shared", False)
+    return TGPSpec(**kw)
 
 
 # ===========================================================================
@@ -494,12 +505,12 @@ def finalize_batch_norm(spec: TGPSpec, params, X):
 def _remat(fn, rng, *args):
     """fn(*args) under `torch.utils.checkpoint` (non-reentrant): its saved
     activations are dropped and recomputed in the backward.  The recompute
-    replays the draws the first call made from `rng` (a `torch.Generator`
-    or `DeviceDraws`; `preserve_rng_state` keeps only the default
-    generators'), and then puts `rng` back where the backward found it, so
-    the stream moves as in a plain step: JAX's `jax.checkpoint` replays its
-    key in the same way.  A test's replacement of `hypernet._draw` is
-    called again in the recompute."""
+    replays the draws the first call made from `rng` (a `torch.Generator`,
+    `DeviceDraws` or `ReplicaGenerators`; `preserve_rng_state` keeps only
+    the default generators'), and then puts `rng` back where the backward
+    found it, so the stream moves as in a plain step: JAX's
+    `jax.checkpoint` replays its key in the same way.  A test's replacement
+    of `hypernet._draw` is called again in the recompute."""
     from torch.utils.checkpoint import checkpoint
 
     state = None if rng is None else rng.get_state()
@@ -544,7 +555,6 @@ def elbo(spec: TGPSpec, params, X, Y, rng=None, block=None):
     """
     if deep.is_deep(spec):
         return deep.elbo(spec, params, X, Y, rng)
-    MB = X.shape[0]
     X3 = _ensure_3d(spec, X)
     gp_spec, gp_params, gp_X = (spec, params, X3) if block is None else \
         block.cut(spec, params, X)
@@ -555,32 +565,56 @@ def elbo(spec: TGPSpec, params, X, Y, rng=None, block=None):
     else:
         mu, var, prior = _marginal_qf(gp_spec, gp_params, gp_X, diagonal=True)
     kl = torch.sum(kld_qu(gp_spec, gp_params, prior))
-    kl_flow = flows_kld(spec, params)
     if block is not None:
         mu, var, kl = block.join(mu, var, kl)
 
-    lik = spec.likelihood
-    lp = params["likelihood"]
-    if lik.kind == "gaussian":
-        ell = torch.sum(gaussian_ell(lik, lp, Y.T, mu, var))
-    elif lik.kind == "warped":
-        ell = torch.sum(warped_ell(lik, lp, Y.T, mu, var, lik.warp_flow,
-                                   lp["warp"]))
+    parts = _ell_parts(spec, params["likelihood"], Y, rng)
+    if parts is None:
+        ell = _plain_ell(spec, params["likelihood"], Y, mu, var)
     else:
+        nodes, ell_at = parts
         warp = _make_warp(spec, params, X3, rng, stochastic=True, train=True)
         if spec.remat and spec.has_flow:
             inner = warp
             warp = lambda f: _remat(inner, rng, f)          # noqa: E731
-        if lik.kind == "gaussian_flow":
-            ell = torch.sum(gaussian_flow_ell(lik, lp, Y.T, mu, var, warp))
-        elif lik.kind == "bernoulli":
-            ell = bernoulli_ell(lik, lp, Y.reshape(1, -1), mu, var, warp)
-        else:
-            if rng is None:
-                raise ValueError("the categorical ELL requires an rng")
-            ell = categorical_ell(lik, lp, Y.reshape(-1), mu, var, warp, rng)
+        ell = ell_at(warp(nodes(mu, var)))
+    return _elbo_sum(spec, params, X.shape[0], ell, kl)
+
+
+def _ell_parts(spec: TGPSpec, lp, Y, rng):
+    """The expected log-likelihood of a likelihood with a warp, cut at the
+    warp: (nodes(mu, var), ell_at(fk)), with the ELL ell_at(warp(nodes)).
+    The categorical nodes draw the MC normals from `rng`, before the warp
+    draws its masks.  None for the likelihoods without one ('gaussian',
+    'warped': `_plain_ell`)."""
+    lik = spec.likelihood
+    if lik.kind == "gaussian_flow":
+        return (lambda mu, var: gaussian_flow_nodes(lik, mu, var),
+                lambda fk: torch.sum(gaussian_flow_ell_at(lik, lp, Y.T, fk)))
+    if lik.kind == "bernoulli":
+        return (lambda mu, var: bernoulli_nodes(lik, mu, var),
+                lambda fk: bernoulli_ell_at(lik, Y.reshape(1, -1), fk))
+    if lik.kind == "categorical":
+        if rng is None:
+            raise ValueError("the categorical ELL requires an rng")
+        return (lambda mu, var: categorical_nodes(lik, mu, var, rng),
+                lambda fk: categorical_ell_at(lik, Y.reshape(-1), fk))
+    return None
+
+
+def _plain_ell(spec: TGPSpec, lp, Y, mu, var):
+    """The ELL of the 'gaussian' and 'warped' likelihoods."""
+    lik = spec.likelihood
+    if lik.kind == "gaussian":
+        return torch.sum(gaussian_ell(lik, lp, Y.T, mu, var))
+    return torch.sum(warped_ell(lik, lp, Y.T, mu, var, lik.warp_flow,
+                                lp["warp"]))
+
+
+def _elbo_sum(spec: TGPSpec, params, MB: int, ell, kl):
+    """(elbo, ell, kld) from a batch of MB rows' ELL and KL(q(U)||p(U))."""
     ell = spec.N / MB * ell
-    total_kl = kl + kl_flow
+    total_kl = kl + flows_kld(spec, params)
     return ell - total_kl, ell, total_kl
 
 
@@ -783,6 +817,36 @@ def sample_predictive(spec: TGPSpec, params, X, S: int, rng: torch.Generator,
         if lik.kind == "warped":
             y = flow_inverse(lik.warp_flow, lp["warp"], y)
     return y.transpose(0, 1), fk, f0
+
+
+# ===========================================================================
+# Convenience OO wrapper
+# ===========================================================================
+
+class TGP:
+    """A spec and its params tree held together; each method is the
+    functional call of the same name on them (JAX `models/tgp.py:851-872`).
+    `.params` is the tree that the functions take; where the JAX wrapper
+    takes a key, this one takes a `torch.Generator`."""
+
+    def __init__(self, spec: TGPSpec, params):
+        self.spec = spec
+        self.params = params
+
+    def elbo(self, X, Y, rng=None):
+        return elbo(self.spec, self.params, X, Y, rng)
+
+    def marginal_qf(self, X, diagonal=True):
+        return marginal_qf(self.spec, self.params, X, diagonal=diagonal)
+
+    def predictive_distribution(self, X, **kw):
+        return predictive_distribution(self.spec, self.params, X, **kw)
+
+    def test_log_likelihood(self, X, Y, Y_std, **kw):
+        return test_log_likelihood(self.spec, self.params, X, Y, Y_std, **kw)
+
+    def sample_predictive(self, X, S, rng, **kw):
+        return sample_predictive(self.spec, self.params, X, S, rng, **kw)
 
 
 # the deep TGP's module imports this one; imported last, so that each can

@@ -33,6 +33,17 @@ states are gathered to every rank (an all_reduce of zero-filled buffers over
 dp) and cut back to R.  A minibatch battery's shuffle streams advance for
 every replica on every rank, so no rank needs another's.
 
+With `spec.remat`, `marginal_qf` and the warp are checkpointed, as in the
+JAX battery.  torch's checkpoint cannot run inside `torch.func.vmap` (a
+saved tensor escapes the map), so the mapped ELBO is cut into mapped calls
+(`_Battery._elbo_map_remat`): the moments of q(f), the warp's nodes, the
+warp, then the ELL and the KL terms, and `models/tgp.py::_remat` wraps the
+whole first and third.  Each call runs the plain map's operations, and the
+recompute replays the replicas' draws from their generators' states, so a
+step gives the plain step's losses and gradients bit for bit and leaves the
+generators where a plain step does; it launches the Gram kernel's forward
+twice and its backward once a rbf leaf, whatever R is.
+
 L-BFGS is refused, as the JAX battery refuses it: a full solver with its
 own line search does not compose with the battery's optimizer.
 """
@@ -55,10 +66,6 @@ from .metrics import inside_95
 from .natgrad import gamma_at, guard_step_arch, natgrad_multiseed_step
 from .optimizers import LBFGS_REFUSAL, build_grouped_optimizer, param_paths
 from .trainer import frozen_param_labels
-
-_REMAT_MSG = ("spec.remat in a battery (checkpointing under the replica "
-              "map) is not ported yet (ROADMAP Queue 3, remat beyond a "
-              "single-layer model's Trainer)")
 
 
 class _Shard:
@@ -290,8 +297,6 @@ class _Battery:
                  clip_norm, specs, carry, seeds, natgrad_gamma, natgrad_force,
                  device):
         tgp_mod.check_spec(spec)
-        if getattr(spec, "remat", False):        # a deep spec has none
-            raise NotImplementedError(_REMAT_MSG)
         self.spec = spec
         self.R = R = X_stack.shape[0]
         _check_replica_axis(params_stack, R)
@@ -322,14 +327,56 @@ class _Battery:
     def _put(self, a):
         return torch.as_tensor(np.asarray(a), dtype=self.dtype).to(self.device)
 
+    def _map(self, fn, *args):
+        with mapped_replicas(self.R):
+            return torch.func.vmap(fn)(*args)
+
     def elbo_map(self, params, X, Y):
         """(elbo, ell, kld), each (R,): the ELBO of every replica on its
-        own batch, as one mapped call."""
-        def one(p, x, y, tok):
-            return tgp_mod.elbo(self.spec, p, x, y, self.rngs.bind(tok))
+        own batch, as one mapped call (a deep spec has no remat)."""
+        if getattr(self.spec, "remat", False):
+            return self._elbo_map_remat(params, X, Y)
+        return self._map(lambda p, x, y, tok: tgp_mod.elbo(
+            self.spec, p, x, y, self.rngs.bind(tok)), params, X, Y, self.token)
 
-        with mapped_replicas(self.R):
-            return torch.func.vmap(one)(params, X, Y, self.token)
+    def _elbo_map_remat(self, params, X, Y):
+        """`elbo_map` with `spec.remat`: `tgp.elbo` cut into mapped calls,
+        `marginal_qf`'s and the warp's each under one checkpoint."""
+        spec, tok, rngs = self.spec, self.token, self.rngs
+
+        def qf(p, x):
+            mu, var, prior = tgp_mod._marginal_qf(
+                spec, p, tgp_mod._ensure_3d(spec, x), diagonal=True)
+            return mu, var, prior or ()     # the map takes tensors only
+
+        def parts(p, y, t):
+            return tgp_mod._ell_parts(spec, p["likelihood"], y, rngs.bind(t))
+
+        def nodes(p, y, m, v, t):
+            return parts(p, y, t)[0](m, v)
+
+        def warp(p, x, f, t):
+            return tgp_mod._make_warp(
+                spec, p, tgp_mod._ensure_3d(spec, x), rngs.bind(t),
+                stochastic=True, train=True)(f)
+
+        mu, var, prior = tgp_mod._remat(lambda P, X: self._map(qf, P, X),
+                                        None, params, X)
+        fk = ()
+        if tgp_mod._ell_parts(spec, None, None, rngs) is not None:
+            fk = self._map(nodes, params, Y, mu, var, tok)
+            if spec.has_flow:
+                fk = tgp_mod._remat(
+                    lambda P, X, F: self._map(warp, P, X, F, tok),
+                    rngs, params, X, fk)
+
+        def tail(p, x, y, m, v, pr, f, t):
+            kl = torch.sum(tgp_mod.kld_qu(spec, p, pr or None))
+            ell = (parts(p, y, t)[1](f) if isinstance(f, torch.Tensor) else
+                   tgp_mod._plain_ell(spec, p["likelihood"], y, m, v))
+            return tgp_mod._elbo_sum(spec, p, x.shape[0], ell, kl)
+
+        return self._map(tail, params, X, Y, mu, var, prior, fk, tok)
 
     def step(self, X, Y, g=None):
         """One optimisation step of every replica: (3, R) on the device."""
