@@ -2,6 +2,8 @@
 """Drive the PyTorch port (`tgp.pytorch_tpu_torch`) on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --bwd-compare DIR   # the backward kernel against
+                                              # DIR's, information only
 
 Phases, each of which fails the run (non-zero exit) on any error:
   1. device: the card's name and power limit; build the CUDA Gram kernels
@@ -488,6 +490,118 @@ def kernel_phase(dev):
     log(f"kernel {label:24s} fwd {big['ms'] * 1e3:7.2f} us (bound "
         f"{big['bound_ms'] * 1e3:6.3f}) err {big['max_abs_err']:.2e}")
     return rows, big
+
+
+def bwd_compare(dev, other_dir):
+    """The backward kernel against another checkout's (a `git archive` of an
+    earlier commit unpacked in `other_dir`; its `ops/rbf_gram.py` builds its
+    own kernels under `other_dir/build/`), information only: the two on the
+    same inputs at every `KERNEL_SHAPES` shape, timed in turns (this, that,
+    that, this), and the device time of a flagship, a DGP-2 boston and an
+    airline step with each in `RBFGram`'s backward, in the same turns."""
+    import importlib.util
+
+    from tgp.pytorch_tpu_torch.ops import rbf_gram as R
+
+    src = Path(other_dir) / "tgp" / "pytorch_tpu_torch" / "ops" / "rbf_gram.py"
+    spec = importlib.util.spec_from_file_location("other_rbf_gram", src)
+    other = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(other)
+    other.build()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    rows = []
+    for label, Dy, N, M, Dx, dtype, pair in KERNEL_SHAPES:
+        sc = min(1.0, 2.0 / Dx ** 0.5)
+        X1 = sc * torch.randn(Dy, N, Dx, generator=gen, device=dev, dtype=dtype)
+        X2 = sc * torch.randn(Dy, M, Dx, generator=gen, device=dev, dtype=dtype)
+        ks = torch.rand(Dy, generator=gen, device=dev, dtype=dtype) + 0.5
+        gs = [torch.randn(shape, generator=gen, device=dev, dtype=dtype)
+              for shape in ((Dy, N, M), (Dy, M, M))[:2 if pair else 1]]
+        fns = {"this": lambda: R._launch_bwd(X1, X2, ks, *gs),
+               "that": lambda: other._launch_bwd(X1, X2, ks, *gs)}
+        got, want = fns["this"](), fns["that"]()
+        torch.cuda.synchronize()
+        diff = max(max_err(a, b) / (float(b.abs().max()) or 1.0)
+                   for a, b in zip(got, want))
+        same = all(torch.equal(a, b) for a, b in zip(got, want))
+        calls = 10 if Dy * N * M > 10 ** 8 else 100
+        turns = [(w, graph_ms(fns[w], calls))
+                 for w in ("this", "that", "that", "this")]
+        ms = {w: float(np.mean([t for v, t in turns if v == w]))
+              for w in fns}
+        row = dict(shape=label, ms=ms["this"], other_ms=ms["that"],
+                   turns_ms=turns, bound_ms=bwd_bound(Dy, N, M, Dx, dtype,
+                                                      pair)[0],
+                   rel_diff=diff, same_bits=same)
+        rows.append(row)
+        log(f"bwd compare {label:30s} this {ms['this'] * 1e3:8.2f} us, other "
+            f"{ms['that'] * 1e3:8.2f} us (turns "
+            + ", ".join(f"{t * 1e3:.2f}" for _, t in turns)
+            + f"), bound {row['bound_ms'] * 1e3:.3f} us, rel diff {diff:.1e}"
+            + (", the same bits" if same else ""))
+
+    def flagship():
+        from tgp.pytorch_tpu_torch import bench
+
+        return bench.flagship_trainer(device=dev), "fp32"
+
+    def dgp2():
+        return dgp_run("boston", 100, 2, "fp64", "gpu")[0].trainer, "fp64"
+
+    def airline():
+        rng = np.random.default_rng(0)
+        X = rng.standard_normal((4 * AIR_BATCH, 8))
+        Y = rng.standard_normal((4 * AIR_BATCH, 1))
+        spec, params = large_model("airline", X, X[:500], "cpu")
+        return large_trainer(spec, params, X, Y, np.ones(1), dev), "fp32"
+
+    own = R._launch_bwd
+    steps = {}
+    for tag, make in (("flagship", flagship), ("DGP-2 boston", dgp2),
+                      ("airline", airline)):
+        tr, precision = make()
+        turns = []
+        for w in ("this", "that", "that", "this"):
+            R._launch_bwd = own if w == "this" else other._launch_bwd
+            try:
+                t = step_timing(tr, precision, f"{tag} step, {w} backward")
+            finally:
+                R._launch_bwd = own
+            turns.append((w, t["profile_per_step"]["device_busy_ms"],
+                          t["profile_per_step"]["gram_bwd_ms"], t["step_ms"]))
+        steps[tag] = {w: dict(device_busy_ms=float(np.mean(
+            [b for v, b, _, _ in turns if v == w])), gram_bwd_ms=float(np.mean(
+            [g for v, _, g, _ in turns if v == w])), step_ms=float(np.mean(
+            [m for v, _, _, m in turns if v == w]))) for w in ("this", "that")}
+        log(f"bwd compare {tag} step: device busy {steps[tag]['this']['device_busy_ms']:.4f}"
+            f" ms a step with this backward, {steps[tag]['that']['device_busy_ms']:.4f}"
+            f" with the other (backward {steps[tag]['this']['gram_bwd_ms'] * 1e3:.2f}"
+            f" / {steps[tag]['that']['gram_bwd_ms'] * 1e3:.2f} us a step)")
+    return dict(rows=rows, steps=steps)
+
+
+def compare_main(other_dir) -> int:
+    """`python3 chip_smoke.py --bwd-compare DIR`: `bwd_compare` alone, its
+    record in chiprun_out/bwd_compare.json and on the last line."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 2
+    from tgp.pytorch_tpu_torch import config as cfg
+    from tgp.pytorch_tpu_torch.ops import rbf_gram as R
+
+    cfg.set_precision("fp32")
+    smi = nvidia_smi()
+    log(f"device: {torch.cuda.get_device_name(0)}; {smi}")
+    R.build()
+    out = bwd_compare(torch.device("cuda", 0), other_dir)
+    out["nvidia_smi"] = smi
+    out_dir = HERE / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    (out_dir / "bwd_compare.json").write_text(json.dumps(out, indent=1,
+                                                         default=_jsonable))
+    log(smi)
+    log(json.dumps(out, default=_jsonable))
+    return 0
 
 
 # ---------------------------------------------------------------------------
@@ -1040,22 +1154,30 @@ def held_gaps(vals, pairs, group, limits, tag, checks, logged=()):
         scale[group(n)] = max(scale.get(group(n), 0.0), float(np.abs(ref[n]).max()))
     out = {}
     for pair, (a, b) in pairs.items():
-        grouped = {}
+        grouped, where = {}, {}
         for n in ref:
-            g = float(np.abs(vals[a][n] - vals[b][n]).max()
-                      / (scale[group(n)] or 1.0))
-            grouped[group(n)] = max(grouped.get(group(n), 0.0), g)
+            d = np.abs(vals[a][n] - vals[b][n])
+            g = float(d.max() / (scale[group(n)] or 1.0))
+            if g >= grouped.get(group(n), 0.0):
+                grouped[group(n)] = g
+                where[group(n)] = (n, np.unravel_index(int(d.argmax()), d.shape))
         lim = limits.get(pair)
         if lim is None and pair not in logged:
             checks.append((False, f"{tag} {pair}: no limits given"))
         for n, g in grouped.items():
             log(f"{tag} {pair} {n:32s} {g:.3e}")
-            if (pair in logged or lim is None
-                    or (n in lim and lim[n] is None)
-                    or (n not in lim and n.startswith(("q_mu", "q_L")))):
-                continue                                # logged, not held
-            checks.append((n in lim and g <= lim[n],
-                           f"{tag} {pair} {n}: {g} (limit {lim.get(n)})"))
+            held = not (pair in logged or lim is None
+                        or (n in lim and lim[n] is None)
+                        or (n not in lim and n.startswith(("q_mu", "q_L"))))
+            ok = n in lim and g <= lim[n] if held else True
+            if n == "curve0" or not ok:
+                # each side's value where the gap is largest, to the last
+                # digit: across runs, which of the two sides moved
+                leaf, i = where[n]
+                log(f"{tag} {pair} {n} at {leaf}{[int(k) for k in i]}: {a} "
+                    f"{float(vals[a][leaf][i])!r} {b} {float(vals[b][leaf][i])!r}")
+            if held:
+                checks.append((ok, f"{tag} {pair} {n}: {g} (limit {lim.get(n)})"))
         out[pair] = grouped
     return out
 
@@ -2171,6 +2293,24 @@ def cls_serving(dev, runs, checks):
                 H._draw = CpuDraws(CLS_SEED)
                 got.append([p.predict(X)["probs"] for X in reqs[case]])
             gaps[case] = max(float(np.abs(a - b).max()) for a, b in zip(*got))
+            # where the gap is largest, each side's value to the last digit,
+            # each side's jitter rung and the trained parameters' digest:
+            # across runs, which side moved and whether training did
+            r = max(range(len(got[0])),
+                    key=lambda r: float(np.abs(got[0][r] - got[1][r]).max()))
+            i = np.unravel_index(int(np.abs(got[0][r] - got[1][r]).argmax()),
+                                 got[0][r].shape)
+            spec = runs[case + ("fp32",)].trainer.spec
+            try:
+                rungs = [ladder_rung(spec, p.params) for p in (pred, cpu)]
+            except Exception as e:          # a model without one K_zz
+                rungs = [type(e).__name__] * 2
+            digest = sum(float(t.double().abs().sum()) for _, t in
+                         named_leaves(cpu.params))
+            log(f"serving classification {case[0]} {case[1]} request {r} at "
+                f"{[int(k) for k in i]}: card {float(got[0][r][i])!r} CPU "
+                f"{float(got[1][r][i])!r}; jitter rung card {rungs[0]} CPU "
+                f"{rungs[1]}; parameters' sum of |x| {digest!r}")
     finally:
         H._draw = prev
     for case, g in gaps.items():
@@ -6074,4 +6214,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--bwd-compare"]:
+        sys.exit(compare_main(sys.argv[2]))
     sys.exit(main())

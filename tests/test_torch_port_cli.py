@@ -31,6 +31,8 @@ from tgp.pytorch_tpu import config as jcfg
 from tgp.pytorch_tpu_torch import config as pcfg, weights
 from tgp.pytorch_tpu_torch.experiments import main as pmain
 
+from test_torch_port_large import jax_native_parser
+
 REPO = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(REPO / "experiments"))
 import main as jmain              # noqa: E402
@@ -82,6 +84,7 @@ def jax_run(monkeypatch, argv):
                         wrap(jinit.fit_flow_to_identity, "fit"))
     monkeypatch.setattr(jdata, "kmeans_centers",
                         wrap(jdata.kmeans_centers, "Z0"))
+    jax_native_parser()
     m = jmain.run(jmain.parse_args(argv))
     return m, seen
 

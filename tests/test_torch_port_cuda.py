@@ -157,17 +157,95 @@ def test_backward_kernel_matches_plain_version(dev, shape, dtype, pair):
         _close_scaled(a, b, tol)
 
 
+def _cotangents(dev, shape, dtype, seed):
+    Dy, N, M, _ = shape
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return (torch.randn(Dy, N, M, generator=gen, device=dev, dtype=dtype),
+            torch.randn(Dy, M, M, generator=gen, device=dev, dtype=dtype))
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-def test_backward_kernel_is_bitwise_repeatable(dev, dtype):
+# the flagship's training pair, YearMSD's width (Dx=90) and a DGP-2 inner
+# layer (Dy=13)
+@pytest.mark.parametrize("shape", [TRAIN, (1, 10000, 100, 90),
+                                   (13, 455, 100, 13)])
+def test_backward_kernel_is_bitwise_repeatable(dev, shape, dtype):
     # no floating-point atomics: the partial sums are reduced in a fixed order
-    Xs, Zs, ks = _inputs(dev, TRAIN, dtype, seed=4)
-    g_xz = torch.randn(1, 8611, 100, device=dev, dtype=dtype)
-    g_zz = torch.randn(1, 100, 100, device=dev, dtype=dtype)
+    Xs, Zs, ks = _inputs(dev, shape, dtype, seed=4)
+    g_xz, g_zz = _cotangents(dev, shape, dtype, seed=5)
     first = R._launch_bwd(Xs, Zs, ks, g_xz, g_zz)
     for _ in range(3):
         again = R._launch_bwd(Xs, Zs, ks, g_xz, g_zz)
         for a, b in zip(first, again):
             assert torch.equal(a, b)
+
+
+def test_backward_kernel_small_n_gives_the_same_bits(dev):
+    # boston's test batch against M=100 (Dx=13, fp64): few rows, each
+    # entry's partials summed in one order
+    shape = (1, 51, 100, 13)
+    Xs, Zs, ks = _inputs(dev, shape, torch.float64, seed=6)
+    g_xz, g_zz = _cotangents(dev, shape, torch.float64, seed=7)
+    want = R.rbf_gram_pair_bwd(Xs, Zs, ks, *R.rbf_gram_pair_reference(
+        Xs, Zs, ks), g_xz, g_zz)
+    first = R._launch_bwd(Xs, Zs, ks, g_xz, g_zz)
+    for a, b in zip(first, want):
+        _close_scaled(a, b, 1e-10)
+    for _ in range(5):
+        for a, b in zip(first, R._launch_bwd(Xs, Zs, ks, g_xz, g_zz)):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_backward_kernel_under_cuda_graph_replay_is_bitwise_eager(dev, dtype):
+    # the block pass and its reduction, with their scratch, captured and
+    # replayed
+    shape = (2, 455, 100, 13)
+    Xs, Zs, ks = _inputs(dev, shape, dtype, seed=8)
+    g_xz, g_zz = _cotangents(dev, shape, dtype, seed=9)
+    eager = R._launch_bwd(Xs, Zs, ks, g_xz, g_zz)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        R._launch_bwd(Xs, Zs, ks, g_xz, g_zz)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    before = R.BWD_LAUNCHES
+    with torch.cuda.graph(graph):
+        out = R._launch_bwd(Xs, Zs, ks, g_xz, g_zz)
+    assert R.BWD_LAUNCHES == before + 1
+    for _ in range(3):
+        for t in out:
+            t.fill_(float("nan"))
+        graph.replay()
+        torch.cuda.synchronize()
+        for a, b in zip(out, eager):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_backward_calls_on_two_streams_share_no_state(dev, dtype):
+    # two calls in flight at once, each against its own eager result
+    shapes = [TRAIN, (1, 455, 100, 13)]
+    args = []
+    for n, shape in enumerate(shapes):
+        Xs, Zs, ks = _inputs(dev, shape, dtype, seed=10 + n)
+        args.append((Xs, Zs, ks, *_cotangents(dev, shape, dtype, seed=20 + n)))
+    eager = [R._launch_bwd(*a) for a in args]
+    torch.cuda.synchronize()
+    streams = [torch.cuda.Stream() for _ in args]
+    for _ in range(3):
+        outs = []
+        for st, a in zip(streams, args):
+            st.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(st):
+                outs.append(R._launch_bwd(*a))
+        for st in streams:
+            torch.cuda.current_stream().wait_stream(st)
+        torch.cuda.synchronize()
+        for got, want in zip(outs, eager):
+            for a, b in zip(got, want):
+                assert torch.equal(a, b)
 
 
 def test_gram_beyond_the_old_grid_cap(dev):

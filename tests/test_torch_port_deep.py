@@ -46,6 +46,7 @@ from tgp.pytorch_tpu_torch.models import deep as pdeep, serialization as pser
 from tgp.pytorch_tpu_torch.models import tgp as PM, utils as putils
 
 from test_torch_port_hypernet import JaxOrderReplay
+from test_torch_port_large import jax_native_parser
 
 REPO = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(REPO / "experiments"))
@@ -421,6 +422,7 @@ def test_dgp_cli_matches_the_jax_cli(monkeypatch, capsys, flags, arch_of):
 
     monkeypatch.setattr(jtrain, "Trainer", Caught)
     monkeypatch.setattr(jmodels, "init_deep_params", jax_init)
+    jax_native_parser()
     mj = jmain.run(jmain.parse_args(argv))
     jline = capsys.readouterr().out.splitlines()[-1].rsplit(" (", 1)[0]
     replay.seal()

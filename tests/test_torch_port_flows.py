@@ -40,6 +40,8 @@ from tgp.pytorch_tpu_torch.likelihoods import LikelihoodSpec as PLik
 from tgp.pytorch_tpu_torch.models import tgp as PM
 from tgp.pytorch_tpu_torch.ops import kernels as pK
 
+from test_torch_port_large import jax_native_parser
+
 sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "experiments"))
 import exp_config as JEC          # noqa: E402
 import flow_arch as JFA           # noqa: E402
@@ -494,6 +496,7 @@ def test_kmeans_centers_match_sklearn(dataset, M):
 
 @pytest.mark.parametrize("dataset", UCI9)
 def test_loader_matches_jax_return_dataset(dataset):
+    jax_native_parser()
     jl, jd = j_return_dataset(dataset, 10000, None, seed=2)
     pl, pd = return_dataset(dataset, 10000, None, seed=2)
     for k in ("N_tr", "Dx", "Dy", "task"):

@@ -55,6 +55,7 @@ from tgp.pytorch_tpu_torch.flows import initializers as pinit
 from tgp.pytorch_tpu_torch.models import tgp as PM
 
 from test_torch_port_hypernet import JaxOrderReplay
+from test_torch_port_large import jax_native_parser
 
 REPO = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(REPO / "experiments"))
@@ -135,6 +136,7 @@ def test_id_tgp_cli_matches_the_jax_cli(monkeypatch, capsys, inference,
     monkeypatch.setattr(jtrain, "Trainer", Caught)
     wrap(jinit, "fit_hypernet_to_anchors", num_epochs=fit_epochs)
     wrap(JM, "init_tgp_params")
+    jax_native_parser()
     jmain.run(jmain.parse_args(argv))
     jlines = result_lines(capsys.readouterr().out)
 

@@ -25,6 +25,7 @@ JAX loader is run with `pd.to_datetime` giving nanoseconds
 
 import importlib
 import pickle
+import time
 import zipfile
 
 import numpy as np
@@ -43,6 +44,32 @@ from tgp.pytorch_tpu_torch.data import large as plarge
 from tgp.pytorch_tpu_torch.data import native as pnative
 from tgp.pytorch_tpu_torch.data import registry as preg
 from tgp.pytorch_tpu_torch.data import splits as psplits
+
+
+def jax_native_parser(wait_s=60.0):
+    """Make sure the JAX package's native parser is loaded before a test
+    compares with it, directly or through a JAX loader.
+
+    `jnative._load()` builds `native/libtgpdata.so` (`make -B`) when it is
+    missing or stale, and a process whose first load fails keeps `_lib =
+    None` for the rest of its life, after which every JAX loader falls back
+    to pandas, whose parse differs by one unit in the last place.  Test
+    workers started together all build the same file at once, so a worker
+    can load it while another one is rewriting it.  This clears such a
+    cached failure and loads again, for up to `wait_s` seconds while
+    another process's build finishes, and then fails by name instead of
+    letting the test compare against the fallback.  It changes only the
+    module's cached state."""
+    deadline = time.monotonic() + wait_s
+    while True:
+        if jnative._lib is None and jnative._tried:
+            jnative._tried = False
+        if jnative._load() is not None or time.monotonic() > deadline:
+            break
+        time.sleep(0.5)
+    assert jnative.available(), (
+        "the JAX package's native parser (native/libtgpdata.so) did not "
+        f"load within {wait_s} s")
 
 
 def _same_split(got, want):
@@ -274,6 +301,7 @@ def _write_airline(path, n=200):
 
 
 def test_airline_loader_fallback_split(tmp_path):
+    jax_native_parser()
     _write_airline(tmp_path)
     out = plarge.load_airline(seed=1, data_dir=str(tmp_path))
     assert out["X_tr"].shape[1] == 3
@@ -287,6 +315,7 @@ def test_airline_loader_fallback_split(tmp_path):
 
 
 def test_airline_loader_reads_a_committed_split(tmp_path):
+    jax_native_parser()
     _write_airline(tmp_path, n=50)
     rng = np.random.RandomState(5)
     perm = rng.permutation(50)
@@ -321,6 +350,7 @@ def _write_year(path, n=60, d=6):
 
 
 def test_year_loader_matches_jax(tmp_path):
+    jax_native_parser()
     data = _write_year(tmp_path)
     out = plarge.load_year(data_dir=str(tmp_path), n_train=40)
     assert out["X_tr"].shape == (40, 6) and out["X_te"].shape == (20, 6)
@@ -334,6 +364,7 @@ def test_year_loader_matches_jax(tmp_path):
 
 
 def test_registry_routes_airline_and_year(tmp_path, monkeypatch):
+    jax_native_parser()
     (tmp_path / "regression" / "airline").mkdir(parents=True)
     _write_airline(tmp_path / "regression" / "airline")
     monkeypatch.setenv("TGP_DATA_ROOT", str(tmp_path))
@@ -396,6 +427,7 @@ def test_loaders_parse_with_the_native_parser_alone(tmp_path, monkeypatch):
 # ---------------------------------------------------------------------------
 
 def test_native_csv_matches_numpy(tmp_path):
+    jax_native_parser()
     assert pnative.available()
     rng = np.random.RandomState(0)
     data = rng.randn(500, 7)
@@ -411,6 +443,7 @@ def test_native_csv_matches_numpy(tmp_path):
 
 
 def test_native_whitespace_mode(tmp_path):
+    jax_native_parser()
     path = tmp_path / "t.tsv"
     path.write_text("1.0   2.0   3.0\n  4.0  5.0   6.0\n")
     out = pnative.read_csv(str(path), sep=" ", ws_mode=True)
@@ -420,6 +453,7 @@ def test_native_whitespace_mode(tmp_path):
 
 
 def test_native_gather_and_permutation():
+    jax_native_parser()
     data = np.arange(40, dtype=np.float64).reshape(10, 4)
     perm = pnative.permutation(10, seed=1)
     assert sorted(perm) == list(range(10))
@@ -484,6 +518,7 @@ def test_download_is_skipped_for_a_file_whose_md5_matches(tmp_path,
 def test_native_csv_ragged_rows_error_not_garbage(tmp_path):
     """A short or long row raises (JAX's parser returns None there and
     falls back to pandas; np.loadtxt raises too)."""
+    jax_native_parser()
     short = tmp_path / "short.csv"
     short.write_text("1.5\n7.25,8.5\n")
     long_ = tmp_path / "long.csv"

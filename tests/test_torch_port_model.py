@@ -27,6 +27,8 @@ from tgp.pytorch_tpu_torch.models import tgp as PM
 from tgp.pytorch_tpu_torch.flows import generators as pG, spec_from_list as p_spec_from_list
 from tgp.pytorch_tpu_torch.data.uci import load_uci_split as p_load_uci_split
 
+from test_torch_port_large import jax_native_parser
+
 F64 = dict(rtol=1e-8, atol=1e-10)
 
 
@@ -211,6 +213,7 @@ def test_unported_flows_and_likelihoods_raise():
 
 
 def test_loader_is_bit_identical_to_jax_package():
+    jax_native_parser()
     dj = j_load_uci_split("power", 1)
     dp = p_load_uci_split("power", 1)
     assert dj.keys() == dp.keys()

@@ -45,6 +45,8 @@ from tgp.pytorch_tpu_torch.data import (ArrayDataset, DataLoader,
 from tgp.pytorch_tpu_torch.experiments import main as pmain
 from tgp.pytorch_tpu_torch.train import Trainer
 
+from test_torch_port_large import jax_native_parser
+
 REPO = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(REPO / "experiments"))
 import main as jmain              # noqa: E402
@@ -95,6 +97,7 @@ def close_to_jax(tr_p, tr_j):
 def boston_svgp(batch=100):
     """(port spec, params, loaders, Y_std, JAX spec, params, loaders): SVGP
     on boston split 1, M=5 k-means centers, Gaussian likelihood."""
+    jax_native_parser()
     loaders, dc = return_dataset("boston", batch, None, seed=1)
     Z0 = kmeans_centers(dc["X_tr"], 5, n_init=2)
     spec_j = JM.svgp_spec(Dy=1, Dx=dc["Dx"], M=5, N=float(dc["N_tr"]),
@@ -290,6 +293,7 @@ def test_cli_levers_match_the_jax_cli(monkeypatch, capsys, name):
             seen["trainer"] = self
 
     monkeypatch.setattr(jtrain, "Trainer", Caught)
+    jax_native_parser()
     mj = jmain.run(jmain.parse_args(argv))
     jout = capsys.readouterr().out
     res = pmain.run(pmain.parse_args(argv))

@@ -45,6 +45,8 @@ from tgp.pytorch_tpu_torch.models import serialization as pser, tgp as PM
 from tgp.pytorch_tpu_torch.ops import kernels as pK
 from tgp.pytorch_tpu_torch.train.checkpoint import load_checkpoint
 
+from test_torch_port_large import jax_native_parser
+
 REPO = Path(__file__).resolve().parents[1]
 F64 = dict(rtol=1e-8, atol=1e-10)
 
@@ -301,6 +303,7 @@ def test_quickstart_matches_the_jax_quickstart(tmp_path):
     held step for step here: at this init Adam turns gradients of rounding
     size into steps (8.5e-8 in the flow after one epoch); the Trainer
     against the JAX Trainer is `test_torch_port_train.py`'s."""
+    jax_native_parser()
     epochs, M = 20, 10
     res = pquick.run(epochs, "cpu", num_inducing=M, precision="fp64",
                      checkpoint_dir=str(tmp_path / "ck"), verbose_each=0)
