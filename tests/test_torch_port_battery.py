@@ -38,6 +38,8 @@ from tgp.pytorch_tpu_torch.experiments import battery as pbat
 from tgp.pytorch_tpu_torch.train import multiseed as pms
 from tgp.pytorch_tpu_torch.weights import tree_leaves
 
+from test_torch_port_large import jax_native_parser
+
 EXP = os.path.join(os.path.dirname(__file__), "..", "experiments")
 if EXP not in sys.path:
     sys.path.insert(0, EXP)
@@ -72,8 +74,10 @@ def seen_wrap(monkeypatch, module, name, seen):
 
 def jax_battery(monkeypatch, tmp_path, argv):
     """The JAX battery's main() in this process: its --out records, saved
-    curves, k-means centers and evaluation metrics."""
+    curves, k-means centers and evaluation metrics (its loaders on the JAX
+    package's native parser, as the port's)."""
     import battery
+    jax_native_parser()
     seen = {}
     seen_wrap(monkeypatch, jms, "eval_multiseed", seen)
     seen_wrap(monkeypatch, jdata, "kmeans_centers", seen)
@@ -204,7 +208,7 @@ def test_battery_ckpt_refuses_another_config_and_a_completed_one(tmp_path):
 
 @pytest.mark.parametrize("flags", [["--mesh", "2"], ["--rng_impl", "rbg"],
                                    ["--precision", "bf16"]])
-def test_battery_refuses_what_waits_for_item_20(flags, tmp_path):
+def test_battery_runs_the_item_20_flags(flags, tmp_path):
     """Item 20 is ported: each flag runs.  A --mesh of one rank runs in the
     process, bitwise the battery without one; of more ranks, it needs
     torch.distributed.run and names the command.  --rng_impl rbg and

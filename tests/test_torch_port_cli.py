@@ -233,7 +233,10 @@ def test_cli_table_arch_minibatch_matches_the_jax_cli(monkeypatch, capsys,
     (["--model", "SVGP", "--checkpoint_dir", "ckpt"], "item 20"),
     (["--model", "SVGP", "--rng_impl", "rbg"], "item 20"),
 ])
-def test_unported_models_and_flags_refuse(flags, item):
+def test_models_and_flags_of_the_ported_items_parse_and_run(flags, item):
+    """Each model and flag the CLI once refused for its ROADMAP item
+    (18-20) is taken; a --mesh of more ranks than the process names the
+    launcher's command."""
     if "--checkpoint_dir" in flags:
         # --checkpoint_dir is ported: the CLI takes it (the checkpoint it
         # writes is tested in tests/test_torch_port_runtime.py)
@@ -260,9 +263,6 @@ def test_unported_models_and_flags_refuse(flags, item):
         args = pmain.parse_args(flags + ARGV)
         assert pmain.refusal(args) is None
         assert args.model != "DGP" or pmain.dgp_refusal(args) is None
-        return
-    with pytest.raises(SystemExit, match=f"ROADMAP Queue 1 {item}"):
-        pmain.run(pmain.parse_args(flags + ARGV))
 
 
 def test_cli_exits_non_zero_naming_the_item():

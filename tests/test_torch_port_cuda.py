@@ -129,28 +129,45 @@ def test_gradients_match_autograd_of_plain_version(dev, dtype):
         _close_scaled(a, b, tol)
 
 
+# the backward's two designs: the block pass and the tile pass
+DESIGNS = ["block", "tile"]
+
+
+def _takes(design, shape, dtype):
+    """Whether `design` takes the shape; the tile pass refuses what its
+    shared memory does not hold, and the test then holds the refusal."""
+    return design == "block" or R.tile_kind(dtype, shape[2],
+                                            shape[3]) != R.REFUSED
+
+
+@pytest.mark.parametrize("design", DESIGNS)
 @pytest.mark.parametrize("pair", [False, True])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("shape", [(2, 131, 77, 3), (1, 4096, 100, 4), TRAIN,
                                    (3, 1, 1, 9), (2, 37, 300, 50)] + CLI_SHAPES
                          + CLASS_SHAPES + WGP_SHAPES + DGP_SHAPES
                          + LARGE_SHAPES)
-def test_backward_kernel_matches_plain_version(dev, shape, dtype, pair):
+def test_backward_kernel_matches_plain_version(dev, shape, dtype, pair, design):
     Xs, Zs, ks = _inputs(dev, shape, dtype, seed=2)
     Dy, N, M, _ = shape
     gen = torch.Generator(device=dev).manual_seed(3)
     g_xz = torch.randn(Dy, N, M, generator=gen, device=dev, dtype=dtype)
     g_zz = torch.randn(Dy, M, M, generator=gen, device=dev, dtype=dtype)
-    before = R.BWD_LAUNCHES
+    gs = (g_xz, g_zz) if pair else (g_xz,)
+    if not _takes(design, shape, dtype):
+        with pytest.raises(ValueError, match="tile pass does not take"):
+            R._launch_bwd(Xs, Zs, ks, *gs, design=design)
+        return
+    before, tiles = R.BWD_LAUNCHES, R.BWD_TILE_LAUNCHES
+    got = R._launch_bwd(Xs, Zs, ks, *gs, design=design)
     if pair:
-        got = R._launch_bwd(Xs, Zs, ks, g_xz, g_zz)
         want = R.rbf_gram_pair_bwd(Xs, Zs, ks, *R.rbf_gram_pair_reference(
             Xs, Zs, ks), g_xz, g_zz)
     else:
-        got = R._launch_bwd(Xs, Zs, ks, g_xz)
         want = R.rbf_gram_bwd(Xs, Zs, ks, R.rbf_gram_reference(Xs, Zs, ks), g_xz)
     torch.cuda.synchronize()
     assert R.BWD_LAUNCHES == before + 1
+    assert R.BWD_TILE_LAUNCHES == tiles + (design == "tile")
     tol = 1e-4 if dtype == torch.float32 else 1e-10
     for a, b in zip(got, want):
         assert a.shape == b.shape and a.dtype == dtype
@@ -164,18 +181,19 @@ def _cotangents(dev, shape, dtype, seed):
             torch.randn(Dy, M, M, generator=gen, device=dev, dtype=dtype))
 
 
+@pytest.mark.parametrize("design", DESIGNS)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 # the flagship's training pair, YearMSD's width (Dx=90) and a DGP-2 inner
 # layer (Dy=13)
 @pytest.mark.parametrize("shape", [TRAIN, (1, 10000, 100, 90),
                                    (13, 455, 100, 13)])
-def test_backward_kernel_is_bitwise_repeatable(dev, shape, dtype):
+def test_backward_kernel_is_bitwise_repeatable(dev, shape, dtype, design):
     # no floating-point atomics: the partial sums are reduced in a fixed order
     Xs, Zs, ks = _inputs(dev, shape, dtype, seed=4)
     g_xz, g_zz = _cotangents(dev, shape, dtype, seed=5)
-    first = R._launch_bwd(Xs, Zs, ks, g_xz, g_zz)
+    first = R._launch_bwd(Xs, Zs, ks, g_xz, g_zz, design=design)
     for _ in range(3):
-        again = R._launch_bwd(Xs, Zs, ks, g_xz, g_zz)
+        again = R._launch_bwd(Xs, Zs, ks, g_xz, g_zz, design=design)
         for a, b in zip(first, again):
             assert torch.equal(a, b)
 
@@ -196,23 +214,24 @@ def test_backward_kernel_small_n_gives_the_same_bits(dev):
             assert torch.equal(a, b)
 
 
+@pytest.mark.parametrize("design", DESIGNS)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-def test_backward_kernel_under_cuda_graph_replay_is_bitwise_eager(dev, dtype):
-    # the block pass and its reduction, with their scratch, captured and
-    # replayed
+def test_backward_kernel_under_cuda_graph_replay_is_bitwise_eager(dev, dtype,
+                                                                   design):
+    # the pass and its reduction, with their scratch, captured and replayed
     shape = (2, 455, 100, 13)
     Xs, Zs, ks = _inputs(dev, shape, dtype, seed=8)
     g_xz, g_zz = _cotangents(dev, shape, dtype, seed=9)
-    eager = R._launch_bwd(Xs, Zs, ks, g_xz, g_zz)
+    eager = R._launch_bwd(Xs, Zs, ks, g_xz, g_zz, design=design)
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
-        R._launch_bwd(Xs, Zs, ks, g_xz, g_zz)
+        R._launch_bwd(Xs, Zs, ks, g_xz, g_zz, design=design)
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
     before = R.BWD_LAUNCHES
     with torch.cuda.graph(graph):
-        out = R._launch_bwd(Xs, Zs, ks, g_xz, g_zz)
+        out = R._launch_bwd(Xs, Zs, ks, g_xz, g_zz, design=design)
     assert R.BWD_LAUNCHES == before + 1
     for _ in range(3):
         for t in out:
@@ -223,15 +242,16 @@ def test_backward_kernel_under_cuda_graph_replay_is_bitwise_eager(dev, dtype):
             assert torch.equal(a, b)
 
 
+@pytest.mark.parametrize("design", DESIGNS)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-def test_backward_calls_on_two_streams_share_no_state(dev, dtype):
+def test_backward_calls_on_two_streams_share_no_state(dev, dtype, design):
     # two calls in flight at once, each against its own eager result
     shapes = [TRAIN, (1, 455, 100, 13)]
     args = []
     for n, shape in enumerate(shapes):
         Xs, Zs, ks = _inputs(dev, shape, dtype, seed=10 + n)
         args.append((Xs, Zs, ks, *_cotangents(dev, shape, dtype, seed=20 + n)))
-    eager = [R._launch_bwd(*a) for a in args]
+    eager = [R._launch_bwd(*a, design=design) for a in args]
     torch.cuda.synchronize()
     streams = [torch.cuda.Stream() for _ in args]
     for _ in range(3):
@@ -239,13 +259,52 @@ def test_backward_calls_on_two_streams_share_no_state(dev, dtype):
         for st, a in zip(streams, args):
             st.wait_stream(torch.cuda.current_stream())
             with torch.cuda.stream(st):
-                outs.append(R._launch_bwd(*a))
+                outs.append(R._launch_bwd(*a, design=design))
         for st in streams:
             torch.cuda.current_stream().wait_stream(st)
         torch.cuda.synchronize()
         for got, want in zip(outs, eager):
             for a, b in zip(got, want):
                 assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("shape", [TRAIN, (1, 4096, 100, 4), (1, 455, 100, 13),
+                                   (13, 455, 100, 13), (10, 8611, 100, 4),
+                                   (1, 10000, 500, 8), (1, 10000, 100, 90),
+                                   (8, 7373, 100, 8), (3, 1080, 50, 4)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_dispatched_backward_is_its_designs_bits(dev, shape, dtype):
+    # `bwd_design` picks the pass by shape; the call gives that pass's bits
+    # (the block pass's are the earlier kernel's), and only a tile-pass
+    # call counts in BWD_TILE_LAUNCHES
+    Dy, N, M, Dx = shape
+    Xs, Zs, ks = _inputs(dev, shape, dtype, seed=12)
+    g_xz, g_zz = _cotangents(dev, shape, dtype, seed=13)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    design = R.bwd_design(dtype, Dy, N, M, Dx, sms,
+                          R.tile_kind(dtype, M, Dx), True)
+    tiles = R.BWD_TILE_LAUNCHES
+    got = R._launch_bwd(Xs, Zs, ks, g_xz, g_zz)
+    assert R.BWD_TILE_LAUNCHES == tiles + (design == "tile")
+    want = R._launch_bwd(Xs, Zs, ks, g_xz, g_zz, design=design)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+def test_tile_kind_is_what_the_tile_pass_plans(dev):
+    # `tile_kind` refuses exactly the shapes whose scratch the tile pass
+    # refuses, and names the quad kernel only in fp32 at Dx <= 16
+    _, bwd = R._load()
+    sms = R._sms(bwd, dev)
+    for dtype, fn in ((torch.float32, bwd.rbf_gram_bwd_tile_scratch_f32),
+                      (torch.float64, bwd.rbf_gram_bwd_tile_scratch_f64)):
+        for M in (1, 7, 20, 50, 100, 256, 300, 420, 500, 640, 1000):
+            for Dx in (1, 4, 8, 9, 13, 16, 17, 50, 90, 128):
+                kind = R.tile_kind(dtype, M, Dx)
+                assert (fn(1, 100, M, Dx, 1, sms) >= 0) == (
+                    kind != R.REFUSED), (dtype, M, Dx)
+                assert kind != R.QUAD or (dtype == torch.float32
+                                          and Dx <= 16), (dtype, M, Dx)
 
 
 def test_gram_beyond_the_old_grid_cap(dev):

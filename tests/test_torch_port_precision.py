@@ -50,6 +50,8 @@ from tgp.pytorch_tpu_torch.models import tgp as PM
 from tgp.pytorch_tpu_torch.ops import kernels as pK, rbf_gram as RG
 from tgp.pytorch_tpu_torch.train import Trainer
 
+from test_torch_port_large import jax_native_parser
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
@@ -264,8 +266,11 @@ def test_bf16_trainer_30_epochs_matches_jax():
 
 
 def _jax_cli():
+    """The JAX CLI's module, its loaders on the JAX package's native parser
+    (as the port's)."""
     sys.path.insert(0, os.path.join(REPO, "experiments"))
     import main as jmain
+    jax_native_parser()
     return jmain
 
 
@@ -326,6 +331,7 @@ def test_battery_precision_bf16_matches_the_jax_battery(monkeypatch,
     npy_j, npy_p = tmp_path / "j.npy", tmp_path / "p.npy"
     monkeypatch.setattr(sys, "argv", ["battery.py", *argv,
                                       "--save_curves", str(npy_j)])
+    jax_native_parser()
     jbat.main()
     pK.BF16_GRAMS = 0
     res = pbat.main([*argv, "--save_curves", str(npy_p)])

@@ -619,16 +619,15 @@ def _classification_matches_jax():
             np.testing.assert_allclose(mp[split]["calibration"][k], v, **F64)
 
 
-@pytest.mark.parametrize("option, item", [
-    ("natgrad_gamma", "item 19"), ("natgrad_warmup", "item 19"),
-    ("lbfgs", "item 19"), ("mesh", "item 20"), ("save", "item 20"),
-    ("restore", "item 20"), ("eval_device", "item 20"),
-    ("plateau_guard", "item 18"), ("remat", "item 21"),
-    ("fully_bayesian", "item 13"), ("bn_flow", "item 13"),
-    ("classification", "item 16"), ("track_fn", "item 21"),
-    ("large_dataset", "item 21"), ("dataset", "item 20")])
-def test_unported_options_raise_and_name_their_item(option, item, monkeypatch,
-                                                    tmp_path):
+@pytest.mark.parametrize("option", [
+    "natgrad_gamma", "natgrad_warmup", "lbfgs", "mesh", "save", "restore",
+    "eval_device", "plateau_guard", "remat", "fully_bayesian", "bn_flow",
+    "classification", "track_fn", "large_dataset", "dataset"])
+def test_trainer_options_of_the_ported_items_run(option, monkeypatch,
+                                                 tmp_path):
+    """Each Trainer option that once raised for its ROADMAP item (13, 16,
+    18-21) runs: briefly here, held against the JAX package where the
+    comment names the test."""
     if option in ("lbfgs", "save", "restore", "eval_device"):
         # items 19 and 20's L-BFGS, checkpoints and eval_device are ported
         # (held in tests/test_torch_port_lbfgs.py and _runtime.py)
@@ -680,34 +679,6 @@ def test_unported_options_raise_and_name_their_item(option, item, monkeypatch,
         for k in ("q_mu", "q_L"):
             assert not torch.equal(tr.params[k], hyper[k])
         assert torch.equal(tr.params["Z"], hyper["Z"])
-        return
-    with pytest.raises(NotImplementedError, match=item):
-        if option == "lbfgs":
-            _small_trainer().train(2, 0.01, "lbfgs")
-        elif option in ("mesh", "track_fn"):
-            _small_trainer(**{option: object()})
-        elif option in ("save", "restore"):
-            getattr(_small_trainer(), option)("ckpt")
-        elif option == "eval_device":
-            tr = _small_trainer()
-            tr.eval_device = "cpu"
-            tr.compute_metrics()
-        elif option == "remat":
-            tr = _small_trainer()
-            tr.spec = dataclasses.replace(tr.spec, remat=True)
-            tr.train(2, 0.01)
-        elif option == "classification":
-            spec = weights.flagship_spec(40, M=4, quad=8)
-            Trainer(dataclasses.replace(spec, likelihood=pgauss.LikelihoodSpec(
-                "bernoulli", 1)), {}, [], [1.0], device="cpu")
-        elif option == "large_dataset":
-            tr = _small_trainer()
-            tr.train_loader = DataLoader(ArrayDataset(
-                np.zeros((40, 4)), np.zeros((40, 1))), 16)
-            tr.DEVICE_RESIDENT_BYTES = 100
-            tr.train(1, 0.01)
-        else:
-            return_dataset("airline", 100)
 
 
 def _item21_option(option):

@@ -16,9 +16,13 @@ Kernels:
     writes whole output rows with 16-byte stores.
   * `csrc/rbf_gram_bwd.cu` replaces its VJP `_bwd` (rbf_gram.py:114-131),
     which the JAX package leaves to XLA.  Bound by bytes (3.72 MB at the
-    training shape 8611 x 100, 1.11 us): it reads g once, recomputes K in
-    registers, and sums per-block partials in a fixed order (no atomics, the
-    same bits on every run).
+    training shape 8611 x 100, 1.11 us), by operations at Dx = 90.  Two
+    designs, both reading g once, recomputing K and summing per-block
+    partials in a fixed order (no atomics, the same bits on every run): the
+    block pass (a block a row tile, one wave) and the tile pass (a block a
+    run of row tiles, Z and its dZ sums kept on chip, the next g tile loading
+    while one is computed, fp64 products on the tensor cores).  `bwd_design`
+    chooses by shape.
 The source notes in the .cu files give the designs.
 
 Under `torch.func.vmap` (the multi-seed battery, `train/multiseed.py`) the
@@ -57,8 +61,11 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 #: forward kernel launches so far; a run sets it to 0 and reads it to prove
 #: that a path went through the kernel
 LAUNCHES = 0
-#: backward kernel calls so far (each is the block pass and its reduction)
+#: backward kernel calls so far, either design (each is a pass and its
+#: reduction)
 BWD_LAUNCHES = 0
+#: of those, the calls that ran the tile pass
+BWD_TILE_LAUNCHES = 0
 
 _libs = None
 _lib_lock = threading.Lock()
@@ -109,12 +116,21 @@ def _load():
             for fn in (fwd.rbf_gram_f32, fwd.rbf_gram_f64):
                 fn.argtypes = [ptr] * 5 + [i32] * 4 + [ptr]
                 fn.restype = i32
-            for fn in (bwd.rbf_gram_bwd_f32, bwd.rbf_gram_bwd_f64):
-                fn.argtypes = [ptr] * 9 + [i32] * 4 + [ptr]
+            for fn in (bwd.rbf_gram_bwd_f32, bwd.rbf_gram_bwd_f64,
+                       bwd.rbf_gram_bwd_tile_f32, bwd.rbf_gram_bwd_tile_f64):
+                fn.argtypes = [ptr] * 9 + [i32] * 5 + [ptr]
                 fn.restype = i32
-            for fn in (bwd.rbf_gram_bwd_scratch_f32, bwd.rbf_gram_bwd_scratch_f64):
-                fn.argtypes = [i32] * 5
+            for fn in (bwd.rbf_gram_bwd_scratch_f32, bwd.rbf_gram_bwd_scratch_f64,
+                       bwd.rbf_gram_bwd_tile_scratch_f32,
+                       bwd.rbf_gram_bwd_tile_scratch_f64):
+                fn.argtypes = [i32] * 6
                 fn.restype = ctypes.c_int64
+            bwd.rbf_gram_bwd_tile_setup.argtypes = []
+            bwd.rbf_gram_bwd_tile_setup.restype = i32
+            for fn in (bwd.rbf_gram_bwd_tile_kind_f32,
+                       bwd.rbf_gram_bwd_tile_kind_f64):
+                fn.argtypes = [i32] * 2
+                fn.restype = i32
             _libs = (fwd, bwd)
     return _libs
 
@@ -245,10 +261,103 @@ def _launch(X1s, X2s, ks):
     return _launch_pair(X1s, X2s, ks, pair=False)[0]
 
 
-def _launch_bwd(Xs, Zs, ks, g_xz, g_zz=None):
+#: `tile_kind`'s answers: the tile pass does not take the shape, or takes it
+#: with its quad kernel, or with its fragment kernel
+REFUSED, QUAD, FRAGMENT = 0, 1, 2
+#: rows an SM in one wave of the block pass: its blocks of at most 64 rows,
+#: two an SM (TN_MAX and BLOCKS_PER_SM in csrc/rbf_gram_bwd.cu)
+_BLOCK_WAVE_ROWS = 128
+
+
+def tile_kind(dtype, M, Dx) -> int:
+    """Which kernel of the tile pass takes Gram columns M and features Dx,
+    from the kernel's own plan (`rbf_gram_bwd_tile_kind_*`, which builds and
+    loads the library): REFUSED where Z, its dZ sums and one 16-row tile do
+    not fit 227 KB of shared memory, else QUAD or FRAGMENT."""
+    _, bwd = _load()
+    fn = (bwd.rbf_gram_bwd_tile_kind_f32 if dtype == torch.float32
+          else bwd.rbf_gram_bwd_tile_kind_f64)
+    return fn(M, Dx)
+
+
+def bwd_design(dtype, Dy, N, M, Dx, sms, kind, pair=True) -> str:
+    """The backward kernel's design for a shape: "block" (the block pass)
+    or "tile" (the tile pass), from the shape, the dtype, the device's SM
+    count and `kind`, the tile pass's kernel for the shape (`tile_kind`).
+
+    From one `chip_smoke.py --bwd-compare` call timing both designs at every
+    `KERNEL_SHAPES` shape (PERF.md, the VJP's row; NVIDIA H100 80GB HBM3).
+    Two cut-offs fall between shapes that call did not time, and are
+    interpolated there: fp64 Dx >= 8 (between Dx = 4, where the block pass
+    won, and Dx = 13, where the tile pass won) and fp32 Dx >= 64 (between
+    Dx = 17 and Dx = 90).
+      * fp64 with Dx >= 8 and M >= 64 takes the tile pass, whose products
+        run on the tensor cores (boston's and DGP-2's Dx = 13 at M = 100,
+        1.5-2.4x; YearMSD's Dx = 90, 4.8x).  At Dx <= 4, or M = 20 and 50,
+        the block pass is faster;
+      * fp32 takes the tile pass past one wave of the block pass (its
+        blocks of at most 64 rows, two an SM: more than 128 rows an SM)
+        where the quad kernel takes it (the battery's R Dy = 10, 1.4x;
+        --dgp_flow, 1.5-2.0x), and at Dx >= 64 (YearMSD, 1.1x).  One wave
+        or less, and airline's M = 500, stay with the block pass: the
+        flagship's pair, kin8nm's and the single Grams keep their bits.
+    Not a fallback: a design that refuses a shape raises.
+    """
+    if kind == REFUSED:
+        return "block"
+    if dtype == torch.float64:
+        return "tile" if Dx >= 8 and M >= 64 else "block"
+    rows = Dy * (N + M if pair else N)
+    if Dx >= 64 or (kind == QUAD and rows > _BLOCK_WAVE_ROWS * sms):
+        return "tile"
+    return "block"
+
+
+_DEVICE_SMS = {}    # CUDA device index -> SM count, the tile pass set up on it
+_PLANS = {}         # (device, dtype, Dy, N, M, Dx, pair, design) -> plan
+
+
+def _sms(bwd, device):
+    """The device's SM count, read once a process; the first call on a
+    device also opts the tile pass in to its shared memory there."""
+    sms = _DEVICE_SMS.get(device.index)
+    if sms is None:
+        with _lib_lock:
+            err = bwd.rbf_gram_bwd_tile_setup()
+            if err != 0:
+                raise RuntimeError(f"rbf_gram_bwd tile setup failed: cudaError {err}")
+            sms = torch.cuda.get_device_properties(device).multi_processor_count
+            _DEVICE_SMS[device.index] = sms
+    return sms
+
+
+def _plan_bwd(bwd, Xs, Dy, N, M, Dx, pair, design):
+    """(C function, scratch values, SM count, is the tile pass) for a
+    backward call, worked out once per shape and device."""
+    key = (Xs.device.index, Xs.dtype, Dy, N, M, Dx, pair, design)
+    plan = _PLANS.get(key)
+    if plan is None:
+        sms = _sms(bwd, Xs.device)
+        chosen = design or bwd_design(Xs.dtype, Dy, N, M, Dx, sms,
+                                      tile_kind(Xs.dtype, M, Dx), pair)
+        if chosen not in ("block", "tile"):
+            raise ValueError(f"unknown backward design {chosen!r}")
+        pre = "rbf_gram_bwd_tile_" if chosen == "tile" else "rbf_gram_bwd_"
+        suf = "f32" if Xs.dtype == torch.float32 else "f64"
+        n_part = getattr(bwd, pre + "scratch_" + suf)(Dy, N, M, Dx, pair, sms)
+        if n_part < 0:
+            raise ValueError(f"the backward's {chosen} pass does not take "
+                             f"M = {M}, Dx = {Dx} in {Xs.dtype} (shared memory)")
+        plan = _PLANS[key] = (getattr(bwd, pre + suf), n_part, sms, chosen == "tile")
+    return plan
+
+
+def _launch_bwd(Xs, Zs, ks, g_xz, g_zz=None, design=None):
     """The backward kernel on the current stream: (dX, dZ, dks) for the
-    cotangent g_xz of K(Xs, Zs) and, for the pair, g_zz of K(Zs, Zs)."""
-    global BWD_LAUNCHES
+    cotangent g_xz of K(Xs, Zs) and, for the pair, g_zz of K(Zs, Zs).
+    `design` ("block" or "tile") overrides `bwd_design`, for the tests and
+    the comparison."""
+    global BWD_LAUNCHES, BWD_TILE_LAUNCHES
     gs = (g_xz,) if g_zz is None else (g_xz, g_zz)
     _check(Xs, Zs, ks, *gs)
     _, bwd = _load()
@@ -256,23 +365,19 @@ def _launch_bwd(Xs, Zs, ks, g_xz, g_zz=None):
     M = Zs.shape[1]
     if Dy == 0 or M == 0 or (N == 0 and g_zz is None):   # every entry is 0
         return torch.zeros_like(Xs), torch.zeros_like(Zs), torch.zeros_like(ks)
-    f32 = Xs.dtype == torch.float32
-    with torch.cuda.device(Xs.device):      # the plan reads its SM count
-        n_part = (bwd.rbf_gram_bwd_scratch_f32 if f32 else
-                  bwd.rbf_gram_bwd_scratch_f64)(Dy, N, M, Dx, g_zz is not None)
-        if n_part < 0:
-            raise ValueError(f"Dx = {Dx} is too wide for the backward kernel's "
-                             "shared-memory budget")
+    with torch.cuda.device(Xs.device):
+        fn, n_part, sms, tile = _plan_bwd(bwd, Xs, Dy, N, M, Dx,
+                                          g_zz is not None, design)
         dX, dZ, dks = (torch.empty_like(t) for t in (Xs, Zs, ks))
         part = torch.empty(n_part, dtype=Xs.dtype, device=Xs.device)
-        fn = bwd.rbf_gram_bwd_f32 if f32 else bwd.rbf_gram_bwd_f64
         err = fn(Xs.data_ptr(), Zs.data_ptr(), ks.data_ptr(), g_xz.data_ptr(),
                  None if g_zz is None else g_zz.data_ptr(), dX.data_ptr(),
                  dZ.data_ptr(), dks.data_ptr(), part.data_ptr(), Dy, N, M, Dx,
-                 _stream(Xs))
+                 sms, _stream(Xs))
     if err != 0:
         raise RuntimeError(f"rbf_gram_bwd kernel launch failed: cudaError {err}")
     BWD_LAUNCHES += 1
+    BWD_TILE_LAUNCHES += tile
     return dX, dZ, dks
 
 
