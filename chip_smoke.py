@@ -156,6 +156,10 @@ Phases, each of which fails the run (non-zero exit) on any error:
      the deep example (`examples.deep_tgp`, 300 of its 1500 epochs; L and
      L a deep step), its shallow SVGP alone for 30 fp64 epochs against the
      CPU.
+Beside the kernel phase, two freshly spawned CPU workers each make one
+forward-only CPU reference as their first call (WGP log_exp fp32 on boston
+at the CLI's init, no epochs: its test and train metrics) and must agree to
+the bit, or the run fails with "CPU reference not reproducible".
 Phases 9, 11, 12 and 16 run in a second process beside the others.  Every
 counted run reads the tile pass's backward calls (`BWD_TILE_LAUNCHES`)
 beside the others, set to 0 and read at the same places: none in the
@@ -176,15 +180,8 @@ import sys
 import time
 from pathlib import Path
 
-# The CPU references' MKL calls take the thread count torch sets, whatever
-# the host's load.  On the card machine two fresh processes in twenty put
-# the WGP log_exp fp32 first ELBO 9.6e-6 from the others, which agreed to
-# the last bit; MKL's dynamic threading (a thread count chosen by the load)
-# is the suspected cause.  Set before MKL loads; spawned workers inherit it.
-os.environ.setdefault("MKL_DYNAMIC", "FALSE")
-
-import numpy as np  # noqa: E402
-import torch  # noqa: E402
+import numpy as np
+import torch
 
 HERE = Path(__file__).resolve().parent
 sys.path.insert(0, str(HERE))
@@ -1316,6 +1313,49 @@ def _job(fn, *args, init_rel=0.0, **kw):
             return fn(*args, **kw)[1]
     finally:
         M.init_tgp_params = init
+
+
+def _first_call_job():
+    """A fresh worker's first call, forward only: WGP log_exp fp32 on
+    boston at M=100 (`cli_run` with no epochs: the CLI's init, then its
+    test and train metrics) at the CPU workers' 2 threads; each metric's
+    repr."""
+    import contextlib
+    import io
+
+    torch.set_num_threads(2)
+    with contextlib.redirect_stdout(io.StringIO()):
+        run = cli_run("WGP", "boston", 100, 0, "fp32", "cpu",
+                      ("--warp_arch", "log_exp"))
+    return {f"{part}/{k}": repr(float(v[0]))
+            for part, m in run.metrics.items() for k, v in m.items()}
+
+
+class FirstCalls:
+    """`_first_call_job` in two freshly spawned workers, started at once;
+    `check()` waits for both and fails unless they agree to the bit (the
+    CPU references of every phase are such workers' calls), `stop()` ends
+    the workers."""
+
+    def __init__(self):
+        import multiprocessing
+        from concurrent.futures import ProcessPoolExecutor
+
+        ctx = multiprocessing.get_context("spawn")
+        self.pools = [ProcessPoolExecutor(max_workers=1, mp_context=ctx)
+                      for _ in range(2)]
+        self.futures = [p.submit(_first_call_job) for p in self.pools]
+
+    def check(self):
+        a, b = (f.result() for f in self.futures)
+        log("first calls of two fresh CPU workers (WGP log_exp fp32, "
+            f"forward only): {json.dumps(a)} and {json.dumps(b)}")
+        check(a == b, "CPU reference not reproducible: the first calls of "
+                      f"two fresh CPU workers differ: {a} against {b}")
+
+    def stop(self):
+        for p in self.pools:
+            p.shutdown(cancel_futures=True)
 
 
 # A start moved by rounding: the CPU's fp64 run with every initial parameter
@@ -6146,8 +6186,8 @@ def kmeans_timing(rows=AIR_ROWS, M=100, n_init=10):
 # launches, the CPU references, fits and k-means), and on a slow host the
 # phases one after another took 1312 s of the 1200 s it may take.  Each
 # phase's launch counts are its own process's; its CPU references' bits do
-# not depend on the load (MKL_DYNAMIC=FALSE).  Timings taken while both run
-# share the host.
+# not depend on the load: each worker fixes torch's thread count.  Timings
+# taken while both run share the host.
 SIDE_PHASES = ("classification", "deep and natgrad", "battery",
                "library surface")
 
@@ -6264,7 +6304,12 @@ def main() -> int:
         log(f"{tag} phase {phase_s[tag]:.1f} s")
         return out
 
-    rows, big = timed("kernel", kernel_phase, dev)
+    first = FirstCalls()
+    try:
+        rows, big = timed("kernel", kernel_phase, dev)
+        first.check()
+    finally:
+        first.stop()
     serving = timed("serving", serving_phase, dev)
     serving["bayes"] = timed("Bayesian serving", bayes_serving_phase, dev)
     grad = timed("gradient", gradient_phase, dev)

@@ -159,8 +159,8 @@ def cluster(tmp_path_factory):
     torch.save({k: {kk: vv for kk, vv in c.items() if kk != "jspec"}
                 for k, c in cases.items()}, work / "inputs.pt")
     md5s = launch.run_ranks(4, "test_torch_port_mesh_ranks:cluster",
-                            {"workdir": str(work)}, timeout=600,
-                            workdir=str(work), env=RANKS_ENV)
+                            {"workdir": str(work)}, platform="cpu",
+                            timeout=600, workdir=str(work), env=RANKS_ENV)
     results = torch.load(work / "results.pt", weights_only=False)
     ref = {k: ranks.run_case(c, None) for k, c in cases.items()}
     return cases, results, ref, md5s
@@ -331,6 +331,24 @@ def test_mesh_rules_without_a_process_group():
     with pytest.raises(ValueError, match="a torch rank owns one device"):
         multihost.initialize("file:///nonexistent", 1, 0, platform="cpu",
                              local_device_count=4)
+
+
+def test_run_ranks_asks_for_the_card_by_default(monkeypatch):
+    """`run_ranks` without `platform` asks for the card: without one it
+    raises before it starts a rank, and does not fall back to gloo on the
+    CPU."""
+    import inspect
+
+    assert inspect.signature(launch.run_ranks).parameters[
+        "platform"].default == "gpu"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+    def no_rank(*a, **k):
+        raise AssertionError("a rank was started")
+
+    monkeypatch.setattr(launch.subprocess, "Popen", no_rank)
+    with pytest.raises(RuntimeError, match="no CUDA device.*platform='cpu'"):
+        launch.run_ranks(2, "test_torch_port_mesh_ranks:cluster")
 
 
 def test_param_sharding_cuts_the_gp_leaves_by_meaning():

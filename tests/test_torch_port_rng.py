@@ -172,7 +172,7 @@ def test_rbg_multiseed_battery_on_mesh(rbg, tmp_path):
                tmp_path / "inputs.pt")
     md5s = launch.run_ranks(2, "test_torch_port_mesh_ranks:battery_on_mesh",
                             {"workdir": str(tmp_path), "dp": 2},
-                            timeout=300, workdir=str(tmp_path),
+                            platform="cpu", timeout=300, workdir=str(tmp_path),
                             env={"PYTHONPATH": TESTS})
     assert md5s[0] == md5s[1]
     got = torch.load(tmp_path / "results.pt", weights_only=False)

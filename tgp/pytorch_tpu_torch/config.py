@@ -34,6 +34,11 @@ solves never leave true fp32.  In fp64, and on the CPU, every mode is
 Devices: entry points take an explicit `device`; `default_device()` is CUDA
 and raises where there is none.  Nothing falls back to the CPU: a caller that
 wants the CPU says `device="cpu"`.
+
+CPU math (`settle_cpu_math`, run when the port loads): MKL's vector math
+library, which torch's CPU exp, log, sqrt and the like call, picks its code
+branch from a cache that two threads can race to fill; the port fills it
+once, in one thread, before anything of the port runs.
 """
 
 from __future__ import annotations
@@ -160,3 +165,27 @@ def default_device() -> torch.device:
 def resolve_device(device=None) -> torch.device:
     """`device` as a torch.device, or `default_device()` when None."""
     return default_device() if device is None else torch.device(device)
+
+
+def settle_cpu_math() -> None:
+    """Fill MKL's vector-math (VML) branch cache in the calling thread.
+
+    torch's CPU exp, log, sqrt, sin, erf, tanh and the like on float and
+    double tensors call MKL's VML (`vmsExp`, `vmdLn`, ...), and each VML
+    call asks `mkl_vml_serv_cpu_detect` for the CPU's code branch.  That
+    function fills a static on its first call with two stores: the branch
+    as detected, then the branch mapped to VML's tables.  A thread that
+    reads the static between the two stores indexes the tables with the
+    unmapped value and runs another branch at another accuracy: on an
+    AVX-512 host, the AVX2 branch at VML's EP accuracy (1.5e-4 relative in
+    fp32, 3.3e-9 in fp64) where torch asks for the AVX-512 HA branch.  Two
+    threads first meet there in the first call of a process that torch
+    splits across threads (2048 elements or more), so that call's first
+    chunk came out wrong now and then.  One call of 16 elements runs in
+    the calling thread alone and fills the static before any such call.
+    Without MKL it just computes exp(0).
+    """
+    torch.exp(torch.zeros(16, dtype=torch.float32))
+
+
+settle_cpu_math()

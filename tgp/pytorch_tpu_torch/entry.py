@@ -65,7 +65,7 @@ def dryrun_multichip(n_devices: int) -> dict:
         raise ValueError(
             f"dryrun_multichip needs n_devices >= 2, got {n_devices}")
     out = run_ranks(n_devices, "tgp.pytorch_tpu_torch.entry:_dryrun_rank",
-                    timeout=900)
+                    platform="cpu", timeout=900)
     if len({(r["params_md5"], r["elbo"]) for r in out}) != 1:
         raise AssertionError(f"ranks disagree: {out}")
     r = out[0]

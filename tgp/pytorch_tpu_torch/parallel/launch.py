@@ -11,9 +11,11 @@ line of its own.  `run_ranks` returns the results in rank order; a rank
 that fails, or outlives `timeout`, raises RuntimeError with the end of its
 output, and every child is killed before it returns or raises.
 
-On the card (`platform="gpu"`) the Gram kernels are built by the parent
-before any rank starts, so that no two ranks run nvcc into the same files;
-`backend="gloo"` lets the ranks share one card.
+The ranks run on the card (`platform="gpu"`, the default), where the Gram
+kernels are built by the parent before any rank starts, so that no two
+ranks run nvcc into the same files; `backend="gloo"` lets the ranks share
+one card.  CPU ranks (gloo) are asked for with `platform="cpu"`; without a
+card and without it, `run_ranks` raises before it starts a rank.
 """
 
 from __future__ import annotations
@@ -47,14 +49,21 @@ print("RANK_RESULT " + json.dumps(out), flush=True)
 
 
 def run_ranks(n: int, target: str, kwargs: dict | None = None, *,
-              platform: str = "cpu", backend: str | None = None,
+              platform: str = "gpu", backend: str | None = None,
               timeout: float = 600.0, workdir: str | None = None,
               env: dict | None = None):
     """Run `target` ("module:function") on n ranks; returns their results
-    in rank order (see the module's docstring)."""
+    in rank order (see the module's docstring).  The ranks run on the
+    card unless `platform="cpu"` asks for the CPU; without a card, the
+    default raises RuntimeError before any rank starts."""
     if platform == "gpu":
+        import torch
+
         from ..ops import rbf_gram
 
+        if not torch.cuda.is_available():
+            raise RuntimeError("no CUDA device is available; pass "
+                               "platform='cpu' to run the ranks on the CPU")
         rbf_gram.build()
     root = str(Path(__file__).resolve().parents[3])
     work = tempfile.mkdtemp(prefix="ranks-", dir=workdir)
